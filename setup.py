@@ -12,7 +12,9 @@ from setuptools import Extension, find_packages, setup
 setup(
     name="vampomi_tpu",
     version="0.1.0",
-    packages=find_packages(include=["vampomi_tpu", "vampomi_tpu.*"]),
+    packages=find_packages(include=["vampomi_tpu", "vampomi_tpu.*",
+                                    "vampomi_tpu_torch", "vampomi_tpu_torch.*"]),
+    package_data={"vampomi_tpu_torch": ["csrc/*.cu"]},
     ext_modules=[
         Extension(
             "vampomi_tpu._native",
