@@ -7,22 +7,28 @@ Phases (each prints its own lines; any failure ends the run non-zero):
 
   0. device   — a CUDA card must be present; prints nvidia-smi's name and
                 power limit and torch's device name.
-  1. build    — builds the atx_int8 kernel from vampomi_tpu_torch/csrc.
-  2. kernel   — atx_int8 against its plain PyTorch version at the north-star
-                shape M = 1,048,576 x N = 10,240 (int8 X made on the card
-                from a seed) and at a ragged shape, plus an f64 reference on
-                a sample of rows; both timed with CUDA events.
+  1. build    — builds the five kernel libraries from vampomi_tpu_torch/csrc,
+                one nvcc each, all started together.
+  2. kernel   — each kernel against its plain PyTorch version and against f64
+                at its main-path shape (int8 X of the north star,
+                M = 1,048,576 x N = 10,240, and packed int4 X of
+                M = 2,097,152 x N = 10,240, both made on the card from a
+                seed) and at a ragged shape; bitwise repeatability; kernel
+                and plain timed with CUDA events in turns.
   3. parity   — infere_linear on the card against the same port on the CPU
-                at M = 16,384 x N = 2,048 (int8, data_sim): eigen for 4
-                iterations, cg for 3.
-  4. cli      — the CLI through files (N = 2,000 x M = 8,000, int8) with
-                eigen and with cg; every output file must exist, be finite,
-                and the x1 correlation must rise.
-  5. main     — the main path at the north-star shape: a planted int8 design
+                at M = 16,384 x N = 2,048 (data_sim), int8 and int4: eigen
+                for 4 iterations, cg for 3.
+  4. cli      — the CLI through files (N = 2,000 x M = 8,000), int8 and
+                int4, with eigen and with cg; every output file must exist,
+                be finite, and the x1 correlation must rise.
+  5. main     — the int8 main path at the north-star shape: a planted design
                 (1,024 causal markers, h2 = 0.8, prior fixed at the truth),
                 5 eigen iterations and 2 CG iterations; prints setup and
-                per-iteration seconds and peak memory, and checks that every
-                iteration went through the kernel.
+                per-iteration seconds and peak memory, and checks from the
+                launch counts that every iteration went through the kernels.
+  6. int4     — the same at M = 2,097,152 x N = 10,240 on a planted packed
+                design (2,048 causal markers: the same density), after the
+                int8 X is freed.
 
 The line before the last is the kernel record {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.  The engine's own per-iteration
@@ -55,16 +61,26 @@ from vampomi_tpu_torch.io.bin_io import read_bin_slab  # noqa: E402
 from vampomi_tpu_torch.io.csv_writer import read_positional_csv  # noqa: E402
 from vampomi_tpu_torch.ops import _build  # noqa: E402
 from vampomi_tpu_torch.ops.atx_int8 import atx_int8, atx_int8_plain  # noqa: E402
+from vampomi_tpu_torch.ops.broadcast import (  # noqa: E402
+    ax_batch_int8, ax_batch_int8_plain, ax_batch_packed4, ax_batch_packed4_plain,
+)
 from vampomi_tpu_torch.ops.operator import (  # noqa: E402
-    ax, ax_batch, build_design, design_from_codes,
+    PACKED4_DTYPE, ax, ax_batch, build_design, design_from_codes, design_from_packed,
+)
+from vampomi_tpu_torch.ops.packed4 import (  # noqa: E402
+    atx_batch_packed4, atx_batch_packed4_plain, atx_packed4, atx_packed4_plain, unpack_rows,
 )
 from vampomi_tpu_torch.sim.data_sim import simulate_iid, write_fixture  # noqa: E402
 
 NS_M, NS_N = 1_048_576, 10_240          # the north-star shape (README.md, bench.py)
+I4_M = 2_097_152                        # the int4 configuration: twice the markers
 SEED = 20261016
-# kernel vs plain / f64: both sum N f32 products, in different orders.  The
-# worst-case bound relative to sum|x||y| is N * 2^-24 ~ 6e-4 at N = 10,240;
-# rounding errors of random signs meet ~sqrt(N) * 2^-24 ~ 6e-6 at most.
+# kernel vs plain / f64: both sum f32 products, in different orders.  The
+# worst-case bound relative to sum|x||v| is (terms in the longest chain of
+# additions) * 2^-24; rounding errors of random signs meet ~sqrt(chain) *
+# 2^-24: ~6e-6 for the N = 10,240 products of a row, and no more for the
+# broadcast kernels, whose lanes each sum at most ~16k rows before the
+# partials meet.
 KERNEL_TOL = 1e-5
 # card against CPU, both f32 with the same probes: sums in another order.
 # eigen is exact per iteration (1e-4 leaves room for 4 iterations of
@@ -73,6 +89,31 @@ KERNEL_TOL = 1e-5
 PARITY_RTOL = {"eigen": 1e-4, "cg": 1e-3}
 PARITY_ATOL = 1e-5  # metrics that start at 0 at the cold start
 PRIOR3 = dict(probs=[0.9, 0.07, 0.03], vars=[0.0, 1e-3, 1e-2], h2=0.8)
+# the least x1 correlation the int4 main path must reach: the JAX int4
+# engine on down-scaled copies of its planted problem (M/N = 204, one causal
+# marker per 1,024, prior fixed at the truth) peaks at 0.367 (CG, 2
+# iterations) and 0.413 (eigen, 5) at N = 256, and 0.387 and 0.568 at
+# N = 512 (PERF.md); the port on the CPU matches it to 1e-3 (eigen) and
+# within the spread of the CG probes.
+X1_MIN_INT4 = 0.3
+DTYPES = {"int8": torch.int8, "int4": PACKED4_DTYPE}
+
+# every kernel of the path: wrapper, plain version, source, the TPU kernel
+# it replaces
+KERNELS = {
+    "atx_int8": (atx_int8, atx_int8_plain, "vampomi_tpu_torch/csrc/atx_int8.cu",
+                 "vampomi_tpu/ops/pallas_matvec.py:55"),
+    "ax_batch_int8": (ax_batch_int8, ax_batch_int8_plain,
+                      "vampomi_tpu_torch/csrc/ax_batch_int8.cu", "tools/r4_probe.py:77"),
+    "atx_packed4": (atx_packed4, atx_packed4_plain, "vampomi_tpu_torch/csrc/atx_packed4.cu",
+                    "vampomi_tpu/ops/pallas_matvec.py:89"),
+    "ax_batch_packed4": (ax_batch_packed4, ax_batch_packed4_plain,
+                         "vampomi_tpu_torch/csrc/ax_batch_packed4.cu",
+                         "vampomi_tpu/ops/pallas_matvec.py:127"),
+    "atx_batch_packed4": (atx_batch_packed4, atx_batch_packed4_plain,
+                          "vampomi_tpu_torch/csrc/atx_batch_packed4.cu",
+                          "vampomi_tpu/ops/pallas_matvec.py:183"),
+}
 
 
 def log(msg: str) -> None:
@@ -112,13 +153,13 @@ def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def rel_err(got: torch.Tensor, want: torch.Tensor, X: torch.Tensor, y: torch.Tensor) -> float:
-    """max |got - want| / sum_n |x_mn||y_n| over the rows, in f64."""
-    scale = torch.empty(X.shape[0], dtype=torch.float64, device=X.device)
-    ya = y.double().abs()
-    for lo in range(0, X.shape[0], 65536):
-        scale[lo:lo + 65536] = X[lo:lo + 65536].double().abs() @ ya
-    return float(((got.double() - want.double()).abs() / scale.clamp_min(1e-30)).max())
+def launches() -> dict:
+    return {name: k[0].launches for name, k in KERNELS.items()}
+
+
+def reset_launches() -> None:
+    for k in KERNELS.values():
+        k[0].launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -143,204 +184,295 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    _build.library("atx_int8")
-    log(f"[build] atx_int8 from vampomi_tpu_torch/csrc/atx_int8.cu in "
-        f"{time.perf_counter() - t0:.2f}s (nvcc {_build.BUILD_SECONDS['atx_int8']:.2f}s)")
+    _build.build_all(list(KERNELS))
+    each = ", ".join(f"{n} {s:.1f}s" for n, s in _build.BUILD_SECONDS.items())
+    log(f"[build] {len(KERNELS)} libraries from vampomi_tpu_torch/csrc in "
+        f"{time.perf_counter() - t0:.2f}s, in parallel (nvcc until seen done: {each})")
 
 
-def make_codes(m: int, n: int, seed: int, device) -> torch.Tensor:
-    """Uniform int8 codes in [-127, 127], made on the device in row chunks."""
+def random_x(m: int, nb: int, dtype: torch.dtype, seed: int, device) -> torch.Tensor:
+    """Uniform codes made on the device in row chunks: int8 in [-127, 127],
+    or uint8 bytes (two uniform nibbles, codes in [-8, 7])."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
-    X = torch.empty((m, n), dtype=torch.int8, device=device)
-    rows = max(1, (256 << 20) // n)
-    for lo in range(0, m, rows):
-        hi = min(m, lo + rows)
-        X[lo:hi] = torch.randint(-127, 128, (hi - lo, n), dtype=torch.int8,
-                                 device=device, generator=g)
+    lo, hi = (-127, 128) if dtype == torch.int8 else (0, 256)
+    X = torch.empty((m, nb), dtype=dtype, device=device)
+    rows = max(1, (256 << 20) // nb)
+    for r in range(0, m, rows):
+        r1 = min(m, r + rows)
+        X[r:r1] = torch.randint(lo, hi, (r1 - r, nb), dtype=dtype, device=device, generator=g)
     return X
 
 
-def phase_kernel(dev: str) -> tuple[torch.Tensor, dict]:
-    X = make_codes(NS_M, NS_N, SEED, dev)
+def codes64(X: torch.Tensor) -> torch.Tensor:
+    return unpack_rows(X, torch.float64) if X.dtype == PACKED4_DTYPE else X.double()
+
+
+def exact_and_scale(X: torch.Tensor, V: torch.Tensor, broadcast: bool):
+    """The f64 product of the codes of X with V, and |codes| @ |V|: per row
+    of X (X V), or summed over rows (X^T V), one chunk of rows at a time."""
+    V64 = V.double()
+    if broadcast:
+        ex = torch.zeros((codes64(X[:1]).shape[1], V.shape[1]), dtype=torch.float64,
+                         device=X.device)
+        sc = torch.zeros_like(ex)
+    else:
+        ex = torch.empty((X.shape[0], V.shape[1]), dtype=torch.float64, device=X.device)
+        sc = torch.empty_like(ex)
+    for r in range(0, X.shape[0], 16384):
+        r1 = min(X.shape[0], r + 16384)
+        C = codes64(X[r:r1])
+        if broadcast:
+            ex += C.T @ V64[r:r1]
+            sc += C.abs().T @ V64[r:r1].abs()
+        else:
+            ex[r:r1] = C @ V64
+            sc[r:r1] = C.abs() @ V64.abs()
+    return ex, sc
+
+
+def check_kernel(name: str, X: torch.Tensor, V: torch.Tensor, timed: bool) -> dict:
+    """One kernel against its plain version and the exact f64 product on
+    the same inputs (errors relative to sum |x||v|), bitwise repeatability,
+    and, when timed, kernel and plain by CUDA events in turns (plain,
+    kernel, kernel, plain).  V is (rows, K); atx-style kernels take V[:, 0]."""
+    kern, plain, _, _ = KERNELS[name]
+    vec = name in ("atx_int8", "atx_packed4")
+    broadcast = name.startswith("ax_batch")
+    run = (lambda f: f(X, V[:, 0].contiguous())[:, None]) if vec else (lambda f: f(X, V))
+    got = run(kern)
+    want = run(plain)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"{name}: kernel output not finite")
+    ex, sc = exact_and_scale(X, V, broadcast)
+    sc = sc.clamp_min(1e-30)
+    err_plain = float(((got.double() - want.double()).abs() / sc).max())
+    err_ref = float(((got.double() - ex).abs() / sc).max())
+    max_abs = float((got - want).abs().max())
+    shape = f"X {tuple(X.shape)} {str(X.dtype).replace('torch.', '')}, K={V.shape[1]}"
+    log(f"[kernel] {name} {shape}: max rel err vs plain {err_plain:.3e}, vs f64 "
+        f"{err_ref:.3e} (tolerance {KERNEL_TOL:g} of sum|x||v|); max abs diff vs plain "
+        f"{max_abs:.4g}")
+    check(err_plain < KERNEL_TOL and err_ref < KERNEL_TOL, f"{name} disagrees at {shape}")
+    check(torch.equal(got, run(kern)), f"{name} not bitwise repeatable at {shape}")
+    rec = dict(max_abs_err=max_abs)
+    if timed:
+        t_plain = [cuda_ms(lambda: run(plain), reps=5, warmup=1)]
+        t_kern = [cuda_ms(lambda: run(kern)), cuda_ms(lambda: run(kern))]
+        t_plain.append(cuda_ms(lambda: run(plain), reps=5, warmup=1))
+        ms, plain_ms = float(np.median(t_kern)), float(np.median(t_plain))
+        gb = X.numel() / 1e9
+        log(f"[kernel] {name} {shape}: {ms:.3f} ms ({gb / ms * 1e3:.1f} GB/s of X); plain "
+            f"{plain_ms:.3f} ms ({gb / plain_ms * 1e3:.1f} GB/s); medians of 7 (kernel) and "
+            f"5 (plain) after warm-up, runs {t_kern} / {t_plain}")
+        rec.update(ms=ms, plain_ms=plain_ms)
+    return rec
+
+
+def phase_kernel(dev: str) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """Every kernel at its main-path shapes (timed at the K the eigen
+    iteration uses) and at a ragged one.  Returns the int8 and packed X and
+    {name: record}."""
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 1)
-    y = torch.randn(NS_N, device=dev, generator=g)
-    got = atx_int8(X, y)
-    plain = atx_int8_plain(X, y)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(got).all()), "kernel output not finite")
-    err_plain = rel_err(got, plain, X, y)
-    max_abs = float((got - plain).abs().max())
-    rows = torch.randperm(NS_M, generator=torch.Generator().manual_seed(SEED))[:4096].to(dev)
-    ref = X[rows].double() @ y.double()
-    err_ref = rel_err(got[rows], ref, X[rows], y)
-    log(f"[kernel] M={NS_M} N={NS_N}: max rel err vs plain {err_plain:.3e}, vs f64 "
-        f"on 4096 rows {err_ref:.3e} (tolerance {KERNEL_TOL:g} of sum|x||y|); "
-        f"max abs diff vs plain {max_abs:.4g}")
-    check(err_plain < KERNEL_TOL and err_ref < KERNEL_TOL, "kernel disagrees at the full shape")
-    check(torch.equal(got, atx_int8(X, y)), "kernel not bitwise repeatable")
 
-    Xr = make_codes(1000, 1001, SEED + 2, dev)
-    yr = torch.randn(1001, device=dev, generator=g)
-    err_r = rel_err(atx_int8(Xr, yr), Xr.double() @ yr.double(), Xr, yr)
-    log(f"[kernel] ragged M=1000 N=1001: max rel err vs f64 {err_r:.3e}")
-    check(err_r < KERNEL_TOL, "kernel disagrees at the ragged shape")
+    def rhs(rows, k):
+        return torch.randn((rows, k), device=dev, generator=g)
 
-    # plain, kernel, kernel, plain: both medians from the same card and call
-    t_plain = [cuda_ms(lambda: atx_int8_plain(X, y))]
-    t_kern = [cuda_ms(lambda: atx_int8(X, y)), cuda_ms(lambda: atx_int8(X, y))]
-    t_plain.append(cuda_ms(lambda: atx_int8_plain(X, y)))
-    ms, plain_ms = float(np.median(t_kern)), float(np.median(t_plain))
-    gb = NS_M * NS_N / 1e9
-    log(f"[kernel] atx_int8 {ms:.3f} ms ({gb / ms * 1e3:.1f} GB/s of X); plain "
-        f"{plain_ms:.3f} ms ({gb / plain_ms * 1e3:.1f} GB/s); medians of 7 after "
-        f"2 warm-ups, runs {t_kern} / {t_plain}")
-    rec = dict(name="atx_int8", route="cuda", source="vampomi_tpu_torch/csrc/atx_int8.cu",
-               replaces="vampomi_tpu/ops/pallas_matvec.py:55", launches=0,
-               max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
-    return X, rec
+    X8 = random_x(NS_M, NS_N, torch.int8, SEED, dev)
+    X4 = random_x(I4_M, NS_N // 2, PACKED4_DTYPE, SEED + 2, dev)
+    plan = [  # (name, X, rows of V, K values; the last K is timed)
+        ("atx_int8", X8, NS_N, [1]),
+        ("ax_batch_int8", X8, NS_M, [1, 2]),
+        ("atx_packed4", X4, NS_N, [1]),
+        ("ax_batch_packed4", X4, I4_M, [1, 2]),
+        ("atx_batch_packed4", X4, NS_N, [2]),
+    ]
+    recs = {}
+    for name, X, rows, ks in plan:
+        for k in ks:
+            r = check_kernel(name, X, rhs(rows, k), timed=True)
+            if name in recs:
+                r["max_abs_err"] = max(r["max_abs_err"], recs[name]["max_abs_err"])
+            recs[name] = r
+        torch.cuda.empty_cache()
+    # ragged shapes: no 16-byte path, a partial column tile, a few splits
+    for name, dtype, m, n in (("atx_int8", torch.int8, 1000, 1001),
+                              ("ax_batch_int8", torch.int8, 1000, 1002),
+                              ("atx_packed4", PACKED4_DTYPE, 1000, 1002),
+                              ("ax_batch_packed4", PACKED4_DTYPE, 1000, 1002),
+                              ("atx_batch_packed4", PACKED4_DTYPE, 1000, 1002)):
+        Xr = random_x(m, n if dtype == torch.int8 else n // 2, dtype, SEED + 3, dev)
+        for k in ((1,) if name.startswith("atx_") and "batch" not in name else (1, 2, 3)):
+            check_kernel(name, Xr, rhs(m if name.startswith("ax_batch") else n, k), timed=False)
+    return X8, X4, recs
 
 
 def _params_rows(d: str, name: str) -> np.ndarray:
     return np.asarray(read_positional_csv(os.path.join(d, f"{name}_params.csv")))
 
 
-def run_pair(devices, m: int, n: int, log_dir: str, out_dir: str, iters: dict) -> dict:
-    """infere_linear on each device on the same int8 design; returns the
-    per-iteration [alpha1, gam1, alpha2, gam2, gamw] + metrics per run."""
+def run_pair(devices, dtype: str, m: int, n: int, log_dir: str, out_dir: str,
+             iters: dict) -> dict:
+    """infere_linear on each device on the same quantized design; returns
+    the per-iteration [alpha1, gam1, alpha2, gam2, gamw] + metrics per run."""
     fx = simulate_iid(n=n, m=m, lam=0.1, h2=PRIOR3["h2"], seed=SEED)
     y = fx.y * math.sqrt((n - 1.0) / np.sum((fx.y - fx.y.mean()) ** 2))
     out = {}
     for solver, k in iters.items():
         for dev in devices:
-            dm = build_design(fx.X.T, compute_dtype=torch.int8, device=dev)
-            cfg = RunConfig(out_dir=out_dir, out_name=f"parity_{solver}_{dev}", iterations=k,
+            dm = build_design(fx.X.T, compute_dtype=DTYPES[dtype], device=dev)
+            name = f"parity_{dtype}_{solver}_{dev}"
+            cfg = RunConfig(out_dir=out_dir, out_name=name, iterations=k,
                             lmmse_solver=solver, stop_criteria_thr=0.0, device=dev,
                             seed=SEED, **PRIOR3)
-            with engine_log(log_dir, f"parity_{solver}_{dev}"):
+            with engine_log(log_dir, name):
                 res = infere_linear(dm, y, cfg, true_signal=fx.beta)
             p = _params_rows(out_dir, cfg.out_name)[:, 1:]
             out[(solver, dev)] = np.concatenate([p, np.asarray(res.metrics_history)], axis=1)
     return out
 
 
-def phase_parity(dev: str, log_dir: str, out_dir: str, m: int = 16_384, n: int = 2_048) -> None:
+def phase_parity(dev: str, dtype: str, log_dir: str, out_dir: str, m: int = 16_384,
+                 n: int = 2_048) -> None:
     t0 = time.perf_counter()
-    runs = run_pair([dev, "cpu"], m, n, log_dir, out_dir, {"eigen": 4, "cg": 3})
+    runs = run_pair([dev, "cpu"], dtype, m, n, log_dir, out_dir, {"eigen": 4, "cg": 3})
     for solver in ("eigen", "cg"):
         a, b = runs[(solver, dev)], runs[(solver, "cpu")]
         check(a.shape == b.shape and np.all(np.isfinite(a)), f"{solver}: bad shapes or values")
         err = np.abs(a - b) / np.maximum(np.abs(b), PARITY_ATOL / PARITY_RTOL[solver])
-        log(f"[parity] {solver} M={m} N={n} int8, {a.shape[0]} iterations: max rel diff "
+        log(f"[parity] {solver} M={m} N={n} {dtype}, {a.shape[0]} iterations: max rel diff "
             f"card vs cpu {err.max():.3e} (tolerance {PARITY_RTOL[solver]:g}, atol "
             f"{PARITY_ATOL:g}); x1 corr per it {np.round(a[:, 6], 6).tolist()}")
         check(np.all(np.abs(a - b) <= PARITY_RTOL[solver] * np.abs(b) + PARITY_ATOL),
-              f"{solver}: card and cpu disagree")
-    log(f"[parity] done in {time.perf_counter() - t0:.1f}s")
+              f"{dtype} {solver}: card and cpu disagree")
+    log(f"[parity] {dtype} done in {time.perf_counter() - t0:.1f}s")
 
 
 def phase_cli(dev: str, log_dir: str, n: int = 2_000, m: int = 8_000, iters: int = 8) -> None:
     with tempfile.TemporaryDirectory(prefix="vampomi_cli_") as d:
         paths = write_fixture(simulate_iid(n=n, m=m, lam=0.1, h2=0.8, seed=SEED), d, "ex")
         log(f"[cli] fixture N={n} M={m}: {os.path.getsize(paths['bin'])} bytes of .bin")
-        for solver in ("eigen", "cg"):
-            out = f"run_{solver}"
-            argv = ["--run-mode", "infere", "--model", "linear", "--meth-file", paths["bin"],
-                    "--phen-file", paths["phen"], "--true-signal-file", paths["ts"],
-                    "--N", str(n), "--Mt", str(m), "--out-dir", d, "--out-name", out,
-                    "--iterations", str(iters), "--stop-criteria-thr", "0",
-                    "--h2", "0.8", "--probs", "0.9,0.07,0.03", "--vars", "0.0,0.001,0.01",
-                    "--device", dev, "--compute-dtype", "int8", "--lmmse-solver", solver]
-            t0 = time.perf_counter()
-            with engine_log(log_dir, f"cli_{solver}"):
-                check(cli.main(argv) == 0, f"cli {solver} returned non-zero")
-            took = time.perf_counter() - t0
-            want = {f"{out}_{s}.csv" for s in ("metrics", "params", "prior")}
-            want |= {f"{out}_trace.jsonl"}
-            want |= {f"{out}_{k}it_{i}.bin" for k in ("", "r1_") for i in range(1, iters + 1)}
-            have = {f for f in os.listdir(d) if f.startswith(out + "_")}
-            check(have == want, f"cli {solver}: files {sorted(have ^ want)} differ")
-            for f in sorted(want):
-                p = os.path.join(d, f)
-                if f.endswith(".bin"):
-                    check(bool(np.all(np.isfinite(read_bin_slab(p, m)))), f"{f} not finite")
-                elif f.endswith(".csv"):
-                    check(bool(np.all(np.isfinite(read_positional_csv(p)))), f"{f} not finite")
-            x1c = [r[2] for r in read_positional_csv(os.path.join(d, f"{out}_metrics.csv"))]
-            log(f"[cli] {solver}: {len(want)} files in {took:.1f}s; x1 corr "
-                f"{np.round(x1c, 4).tolist()}")
-            check(x1c[-1] > x1c[0] and x1c[-1] > 0.5, f"cli {solver}: x1 correlation did not rise")
+        for dtype in DTYPES:
+            for solver in ("eigen", "cg"):
+                out = f"run_{dtype}_{solver}"
+                argv = ["--run-mode", "infere", "--model", "linear",
+                        "--meth-file", paths["bin"], "--phen-file", paths["phen"],
+                        "--true-signal-file", paths["ts"], "--N", str(n), "--Mt", str(m),
+                        "--out-dir", d, "--out-name", out, "--iterations", str(iters),
+                        "--stop-criteria-thr", "0", "--h2", "0.8", "--probs", "0.9,0.07,0.03",
+                        "--vars", "0.0,0.001,0.01", "--device", dev,
+                        "--compute-dtype", dtype, "--lmmse-solver", solver]
+                t0 = time.perf_counter()
+                with engine_log(log_dir, f"cli_{dtype}_{solver}"):
+                    check(cli.main(argv) == 0, f"cli {dtype} {solver} returned non-zero")
+                took = time.perf_counter() - t0
+                want = {f"{out}_{s}.csv" for s in ("metrics", "params", "prior")}
+                want |= {f"{out}_trace.jsonl"}
+                want |= {f"{out}_{k}it_{i}.bin" for k in ("", "r1_")
+                         for i in range(1, iters + 1)}
+                have = {f for f in os.listdir(d) if f.startswith(out + "_")}
+                check(have == want, f"cli {dtype} {solver}: files {sorted(have ^ want)} differ")
+                for f in sorted(want):
+                    p = os.path.join(d, f)
+                    if f.endswith(".bin"):
+                        check(bool(np.all(np.isfinite(read_bin_slab(p, m)))), f"{f} not finite")
+                    elif f.endswith(".csv"):
+                        check(bool(np.all(np.isfinite(read_positional_csv(p)))),
+                              f"{f} not finite")
+                x1c = [r[2] for r in read_positional_csv(os.path.join(d, f"{out}_metrics.csv"))]
+                log(f"[cli] {dtype} {solver}: {len(want)} files in {took:.1f}s; x1 corr "
+                    f"{np.round(x1c, 4).tolist()}")
+                check(x1c[-1] > x1c[0] and x1c[-1] > 0.5,
+                      f"cli {dtype} {solver}: x1 correlation did not rise")
 
 
-def planted_problem(X: torch.Tensor, causal: int = 1024, h2: float = 0.8):
-    """y = A beta + e in file units on the design of the codes X."""
-    dm = design_from_codes(X)
-    m, n = X.shape
+def planted_problem(dm, causal: int, h2: float = 0.8):
+    """y = A beta + e in file units on the design dm of codes made on the card."""
+    m, n = dm.m_pad, int(dm.n)
     gen = torch.Generator().manual_seed(SEED + 3)
     idx = torch.randperm(m, generator=gen)[:causal]
     beta = np.zeros(m)
     beta[idx.numpy()] = np.random.default_rng(SEED).normal(0.0, math.sqrt(h2 / causal), causal)
-    g = math.sqrt(n) * ax(dm, torch.as_tensor(beta, dtype=torch.float32, device=X.device))
+    g = math.sqrt(n) * ax(dm, torch.as_tensor(beta, dtype=torch.float32, device=dm.device))
     y = g.double().cpu().numpy() + np.random.default_rng(SEED + 1).normal(
         0.0, math.sqrt(1.0 - h2), n)
     y = y * math.sqrt((n - 1.0) / np.sum((y - y.mean()) ** 2))  # as read_phen does
     prior = dict(probs=[1.0 - causal / m, causal / m], vars=[0.0, h2 / causal], h2=h2)
-    return dm, y, beta, prior
+    return y, beta, prior
 
 
-def phase_main(X: torch.Tensor, log_dir: str, out_dir: str, iters: int = 5,
-               cg_iters: int = 2, cg_max_iter: int = 50, causal: int = 1024) -> int:
+# kernels each main-path run must launch at least once per iteration (the
+# A^T y kernels once more, for the constant A^T y of the setup)
+MAIN_KERNELS = {
+    ("int8", "eigen"): ("atx_int8", "ax_batch_int8"),
+    ("int8", "cg"): ("atx_int8", "ax_batch_int8"),
+    ("int4", "eigen"): ("atx_packed4", "ax_batch_packed4"),
+    ("int4", "cg"): ("atx_packed4", "ax_batch_packed4", "atx_batch_packed4"),
+}
+
+
+def phase_main(dtype: str, X: torch.Tensor, log_dir: str, out_dir: str, x1_min: float,
+               iters: int = 5, cg_iters: int = 2, cg_max_iter: int = 50) -> dict:
+    """The main path on a planted design over the codes X: 5 eigen and 2 CG
+    iterations, prior fixed at the truth, one causal marker per 1,024.
+    Returns the kernel launches of the whole path (counts set to 0 just
+    before it and read just after)."""
     dev = X.device
     t0 = time.perf_counter()
-    dm, y, beta, prior = planted_problem(X, causal)
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    sync()
-    m, n = X.shape
-    log(f"[main] planted int8 design M={m} N={n} (M/N={m / n:.0f}), {causal} causal, "
-        f"h2=0.8, prior fixed at the truth: built in {time.perf_counter() - t0:.1f}s")
-    if dev.type == "cuda":
-        W = torch.randn((m, 2), device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
-        ms = cuda_ms(lambda: ax_batch(dm, W), reps=5, warmup=1)
-        log(f"[main] plain int8 ax_batch (K=2): {ms:.3f} ms ({m * n / ms / 1e6:.1f} GB/s of X)")
-        del W
-    launches = 0
+    dm = design_from_packed(X) if dtype == "int4" else design_from_codes(X)
+    causal = dm.m_pad // 1024
+    y, beta, prior = planted_problem(dm, causal)
+    torch.cuda.synchronize()
+    m, n = dm.m_pad, int(dm.n)
+    log(f"[main {dtype}] planted design M={m} N={n} (M/N={m / n:.0f}, "
+        f"{X.numel() / 2**30:.2f} GiB of X), {causal} causal, h2=0.8, prior fixed at the "
+        f"truth: built in {time.perf_counter() - t0:.1f}s")
+    W = torch.randn((m, 2), device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    ms = cuda_ms(lambda: ax_batch(dm, W), reps=5, warmup=1)
+    log(f"[main {dtype}] operator ax_batch (K=2): {ms:.3f} ms ({X.numel() / ms / 1e6:.1f} GB/s "
+        f"of X)")
+    del W
+    reset_launches()
     for solver, k in (("eigen", iters), ("cg", cg_iters)):
-        cfg = RunConfig(out_dir=out_dir, out_name=f"main_{solver}", iterations=k,
+        cfg = RunConfig(out_dir=out_dir, out_name=f"main_{dtype}_{solver}", iterations=k,
                         lmmse_solver=solver, stop_criteria_thr=0.0, learn_vars=0,
                         learn_prior_delay=k, CG_max_iter=cg_max_iter, device=str(dev),
                         seed=SEED, **prior)
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
-        atx_int8.launches = 0
-        with engine_log(log_dir, f"main_{solver}"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = launches()
+        with engine_log(log_dir, f"main_{dtype}_{solver}"):
             res = infere_linear(dm, y, cfg, true_signal=beta)
-        sync()
-        count = atx_int8.launches
-        peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else float("nan")
+        torch.cuda.synchronize()
+        count = {name: c - before[name] for name, c in launches().items() if c > before[name]}
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
         mh = np.asarray(res.metrics_history)
         secs = res.iter_seconds
         steady = secs[1:] if len(secs) > 1 else secs
         setup = res.setup
         extra = (f"gram {setup['gram']:.3f}s, eigh {setup['eigh']:.3f}s (residual "
                  f"{setup['eigen_resid']:.2e}), " if solver == "eigen" else "")
-        log(f"[main] {solver}: {extra}A^T y {setup['aty']:.4f}s; per-iteration seconds "
-            f"{[round(s, 4) for s in secs]}; {1.0 / np.mean(steady):.2f} it/s over "
-            f"iterations 2..{len(secs)}; peak memory {peak:.2f} GiB; atx_int8 launches "
-            f"{count}; x1 corr {np.round(mh[:, 1], 4).tolist()}")
+        log(f"[main {dtype}] {solver}: {extra}A^T y {setup['aty']:.4f}s; per-iteration "
+            f"seconds {[round(s, 4) for s in secs]}; {1.0 / np.mean(steady):.2f} it/s over "
+            f"iterations 2..{len(secs)}; peak memory {peak:.2f} GiB; kernel launches {count}; "
+            f"x1 corr {np.round(mh[:, 1], 4).tolist()}")
         check(np.all(np.isfinite(mh)) and np.all(np.isfinite(res.x1_hat_scaled)),
-              f"{solver}: outputs not finite")
-        check(mh[-1, 1] > mh[0, 1], f"{solver}: x1 correlation did not rise")
-        # the trajectory recovers signal first; at M/N ~ 100 the noise-
+              f"{dtype} {solver}: outputs not finite")
+        check(mh[-1, 1] > mh[0, 1], f"{dtype} {solver}: x1 correlation did not rise")
+        # the trajectory recovers signal first; at M/N >= 100 the noise-
         # precision EM then drives it down in the JAX engine too (PERF.md)
-        check(mh[:, 1].max() > 0.4, f"{solver}: x1 correlation never passed 0.4")
+        check(mh[:, 1].max() > x1_min,
+              f"{dtype} {solver}: x1 correlation never passed {x1_min}")
         for i in range(1, k + 1):
             check(bool(np.all(np.isfinite(read_bin_slab(
-                os.path.join(out_dir, f"main_{solver}_it_{i}.bin"), m)))), "dump not finite")
-        if solver == "eigen":
-            check(count >= k + 1, f"atx_int8 launched {count} times, want >= {k + 1}")
-            launches = count
-    return launches
+                os.path.join(out_dir, f"main_{dtype}_{solver}_it_{i}.bin"), m)))),
+                "dump not finite")
+        for name in MAIN_KERNELS[(dtype, solver)]:
+            need = k + 1 if name in ("atx_int8", "atx_packed4") else k  # + A^T y once
+            check(count.get(name, 0) >= need,
+                  f"{dtype} {solver}: {name} launched {count.get(name, 0)} times in {k} "
+                  f"iterations, want >= {need}")
+    return launches()
 
 
 def main(argv=None) -> int:
@@ -355,12 +487,24 @@ def main(argv=None) -> int:
         os.makedirs(log_dir, exist_ok=True)
         t0 = time.perf_counter()
         phase_build()
-        X, rec = phase_kernel(dev)
-        phase_parity(dev, log_dir, out_dir)
+        X8, X4, recs = phase_kernel(dev)
+        for dtype in DTYPES:
+            phase_parity(dev, dtype, log_dir, out_dir)
         phase_cli(dev, log_dir)
-        rec["launches"] = phase_main(X, log_dir, out_dir)
+        counts = phase_main("int8", X8, log_dir, out_dir, x1_min=0.4)
+        del X8
+        torch.cuda.empty_cache()  # the int8 X goes before the int4 path
+        counts.update({name: c for name, c in phase_main(
+            "int4", X4, log_dir, out_dir, x1_min=X1_MIN_INT4).items()
+            if name in ("atx_packed4", "ax_batch_packed4", "atx_batch_packed4")})
+        for name, c in counts.items():
+            check(c > 0, f"{name} was never launched on its main path")
         log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
-    print(json.dumps({"kernels": [rec]}))
+    kernels = [dict(name=name, route="cuda", source=src, replaces=rep, launches=counts[name],
+                    max_abs_err=recs[name]["max_abs_err"], ms=recs[name]["ms"],
+                    plain_ms=recs[name]["plain_ms"])
+               for name, (_, _, src, rep) in KERNELS.items()]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -117,7 +117,6 @@ UNPORTED = [
     ["--model", "bin_class"], ["--C", "2"], ["--resume-file", "ck.npz"],
     ["--checkpoint-file", "ck.npz"], ["--eigen-cache", "e.npz"], ["--init-conf", "g.conf"],
     ["--profile-dir", "prof"], ["--lmmse-solver", "spectral"], ["--compute-dtype", "bf16"],
-    ["--compute-dtype", "int4"],
 ]
 
 

@@ -24,6 +24,7 @@ state0 = (str(torch.get_default_dtype()), torch.backends.cuda.matmul.allow_tf32,
           torch.get_float32_matmul_precision())
 import vampomi_tpu_torch.cli, vampomi_tpu_torch.engine.linear, vampomi_tpu_torch.convert
 import vampomi_tpu_torch.dataset, vampomi_tpu_torch.__main__
+import vampomi_tpu_torch.ops.packed4, vampomi_tpu_torch.ops.broadcast
 state1 = (str(torch.get_default_dtype()), torch.backends.cuda.matmul.allow_tf32,
           torch.get_float32_matmul_precision())
 added = sorted(set(sys.modules) - before)
@@ -41,7 +42,8 @@ def test_importing_the_port_pulls_in_no_jax():
            if m == "jax" or m.startswith(("jax.", "jaxlib", "vampomi_tpu."))
            or m == "vampomi_tpu"]
     assert not bad, bad
-    assert "vampomi_tpu_torch.engine.linear" in res["added"]
+    for mod in ("engine.linear", "ops.packed4", "ops.broadcast", "ops.atx_int8"):
+        assert f"vampomi_tpu_torch.{mod}" in res["added"], mod
     assert res["same_state"], "importing the port changed global torch state"
 
 
@@ -73,13 +75,14 @@ def test_cli_device_cuda_without_a_card_raises_before_any_work(monkeypatch, tmp_
     ("auto", "cpu", torch.float64), ("auto", "cuda", torch.float32),
     ("float64", "cuda", torch.float64), ("f32", "cpu", torch.float32),
     ("int8", "cpu", torch.int8), ("i8", "cuda", torch.int8),
+    ("int4", "cpu", torch.uint8), ("i4", "cuda", torch.uint8),
 ])
 def test_compute_dtype_resolution(compute_dtype, device, want):
     cfg = tconfig.RunConfig(compute_dtype=compute_dtype, device=device)
     assert cfg.resolved_compute_dtype() == want
 
 
-@pytest.mark.parametrize("compute_dtype", ["bfloat16", "bf16", "int4", "i4"])
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "bf16"])
 def test_unported_compute_dtypes_raise(compute_dtype):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tconfig.RunConfig(compute_dtype=compute_dtype).resolved_compute_dtype()

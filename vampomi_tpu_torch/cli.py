@@ -3,9 +3,9 @@
 `--device {cuda,cpu}`.
 
 Ported: `--run-mode infere --model linear` with the cg and eigen LMMSE
-solvers over f64, f32 and int8 designs.  Every other mode, model and the
-flags below exit with a message naming ROADMAP.md; none is replaced by other
-behaviour.
+solvers over f64, f32, int8 and packed-int4 (`--compute-dtype int4`)
+designs.  Every other mode, model and the flags below exit with a message
+naming ROADMAP.md; none is replaced by other behaviour.
 
     python -m vampomi_tpu_torch.cli --device cuda --meth-file x.bin ...
 """

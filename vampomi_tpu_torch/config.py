@@ -23,8 +23,10 @@ _DTYPES = {
     "float32": torch.float32, "f32": torch.float32,
     # per-marker affine-quantized design (ops/operator.py quantize_markers)
     "int8": torch.int8, "i8": torch.int8,
+    # packed 4-bit design, two codes per byte (ops/operator.py PACKED4_DTYPE)
+    "int4": torch.uint8, "i4": torch.uint8,
 }
-NOT_PORTED_DTYPES = ("bfloat16", "bf16", "int4", "i4")
+NOT_PORTED_DTYPES = ("bfloat16", "bf16")
 
 
 def resolve_device(name: str | torch.device) -> torch.device:
@@ -108,7 +110,7 @@ class RunConfig:
     spectral_max_n: int = 16384   # auto picks spectral only when N <= this
     eigen_cache: str = ""
     eigen_build_budget: float = 0.0  # wall seconds the eigen build may take (0 = unlimited)
-    compute_dtype: str = "auto"   # auto | float64 | float32 | int8 (bfloat16, int4 not ported)
+    compute_dtype: str = "auto"   # auto | float64 | float32 | int8 | int4 (bfloat16 not ported)
     seed: int = 0                 # seeded probe RNG (fixes reference quirk Q4)
     checkpoint_file: str = ""
     resume_file: str = ""

@@ -19,6 +19,7 @@ from .prior.mixture import MixturePrior
 
 _NP_TO_TORCH = {
     np.dtype(np.int8): torch.int8,
+    np.dtype(np.uint8): torch.uint8,  # packed int4 (two nibbles per byte)
     np.dtype(np.float32): torch.float32,
     np.dtype(np.float64): torch.float64,
 }
@@ -26,12 +27,13 @@ _NP_TO_TORCH = {
 
 def design_from_arrays(d: dict, device: str | torch.device = "cpu") -> DesignMatrix:
     """DesignMatrix from `X, mave, msig, mmask, inv_sqrt_n, n, mt`.  X keeps
-    its dtype (f64, f32 or int8); the vectors go to the work dtype."""
+    its dtype (f64, f32, int8 or packed-int4 uint8); the vectors go to the
+    work dtype."""
     X = np.asarray(d["X"])
     xd = _NP_TO_TORCH.get(X.dtype)
     if xd is None:
         raise NotImplementedError(f"X dtype {X.dtype} is not ported yet")
-    wd = torch.float32 if xd == torch.int8 else xd
+    wd = torch.float32 if xd in (torch.int8, torch.uint8) else xd
 
     def vec(a):
         return torch.tensor(np.asarray(a, dtype=np.float64)).to(device=device, dtype=wd)

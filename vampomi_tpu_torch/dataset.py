@@ -2,7 +2,8 @@
 vampomi_tpu/dataset.py:24-83, single process).
 
 Loading is host-side numpy: the whole (Mt, N) f64 marker-major `.bin` is
-read, quantized or cast, and copied to the device once.
+read, quantized (and for int4 packed two codes to a byte) or cast, and
+copied to the device once.
 """
 
 from __future__ import annotations

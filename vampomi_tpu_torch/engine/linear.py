@@ -45,7 +45,7 @@ from ..io.bin_io import iteration_file, write_marker_file
 from ..io.csv_writer import PositionalCSV
 from ..ops.cg import cg_solve
 from ..ops.eigen import EigenFactor, build_eigen, eigen_weights
-from ..ops.operator import DesignMatrix, atx, ax, ax_batch, f64
+from ..ops.operator import PACKED4_DTYPE, DesignMatrix, atx, ax, ax_batch, f64
 from ..ops.spectral import build_spectral
 from ..prior.mixture import (
     MixturePrior, em_update, g1, g1d, init_prior, merge_components_device,
@@ -515,7 +515,9 @@ def infere_linear(
         model="linear",
         solver=solver,
     )
-    itemsize = dm.X.element_size()
+    # bytes per MATRIX ELEMENT an HBM pass moves: 0.5 for the packed int4
+    # layout (two codes per byte), else the storage itemsize
+    itemsize = 0.5 if dm.X.dtype == PACKED4_DTYPE else dm.X.element_size()
 
     # device→host artifact IO overlaps the next iteration's compute
     writer = AsyncWriter()

@@ -1,13 +1,16 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is a `.cu` file under `vampomi_tpu_torch/csrc/` with a plain C
-entry point.  It is compiled with nvcc into a shared library at first use and
+Each kernel library is a `.cu` file under `vampomi_tpu_torch/csrc/` with a
+plain C entry point; it may include headers (`*.cuh`) from the same
+directory.  It is compiled with nvcc into a shared library at first use and
 loaded with ctypes: no PyTorch headers are included, so a build takes
 seconds, not the minutes `torch.utils.cpp_extension.load` needs.
 
 Libraries go to `build/vampomi_tpu_torch/` at the repository root, named by a
-hash of the source and the flags, so an edited source rebuilds and a second
-process reuses the first one's build.  Nothing here runs at import time.
+hash of the source, every header it includes and the flags, so an edited
+source or header rebuilds and a second process reuses the first one's build.
+`build_all` starts one nvcc per library, all at once.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,9 +30,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 _LOADED: dict[str, ctypes.CDLL] = {}
-# seconds each build took in this process (0.0 when the library was cached)
+# seconds from the start of each build in this process until it was seen
+# finished (0.0 when the library was already built)
 BUILD_SECONDS: dict[str, float] = {}
 
 
@@ -51,29 +57,77 @@ def find_nvcc() -> str:
     return found
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of `csrc/<name>.cu`, built if needed.
+def sources(name: str) -> list[Path]:
+    """`csrc/<name>.cu` and every header it includes from csrc/, transitively."""
+    seen: list[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        f = todo.pop()
+        if f in seen:
+            continue
+        seen.append(f)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(f.read_bytes())]
+    return seen
 
-    Raises RuntimeError with nvcc's output when the build fails."""
-    if name in _LOADED:
-        return _LOADED[name]
-    src = CSRC / f"{name}.cu"
-    text = src.read_bytes()
-    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+
+def _library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(sources(name)):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names) -> dict[str, ctypes.CDLL]:
+    """The loaded shared libraries of `csrc/<name>.cu` for each name, the
+    missing ones built in parallel (one nvcc process each).
+
+    Raises RuntimeError with nvcc's output when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"{name}-{key}.so"
-    t0 = time.perf_counter()
-    if not so.exists():
-        tmp = BUILD_DIR / f"{name}-{key}.{os.getpid()}.tmp.so"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    started = {}
+    for name in dict.fromkeys(names):
+        if name in _LOADED:
+            continue
+        so = _library_path(name)
+        if so.exists():
+            BUILD_SECONDS.setdefault(name, 0.0)
+            continue
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        started[name] = (proc, cmd, tmp, so, time.perf_counter())
+    failed = []
+    for name, (proc, cmd, tmp, so, t0) in started.items():
+        out, _ = proc.communicate()
+        BUILD_SECONDS[name] = time.perf_counter() - t0
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build {src} (exit {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
-    BUILD_SECONDS[name] = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(so))
-    _LOADED[name] = lib
-    return lib
+            failed.append(f"nvcc failed to build {name} (exit {proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+        else:
+            os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        if name not in _LOADED:
+            _LOADED[name] = ctypes.CDLL(str(_library_path(name)))
+    return {name: _LOADED[name] for name in names}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of `csrc/<name>.cu`, built if needed."""
+    return build_all([name])[name]
+
+
+def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The C entry point `symbol` of library `name`, returning a cudaError_t
+    as an int."""
+    fn = getattr(library(name), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise when a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: kernel launch failed with cudaError {err}")

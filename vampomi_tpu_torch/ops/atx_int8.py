@@ -29,9 +29,10 @@ from . import _build
 PLAIN_CHUNK_BYTES = 256 << 20
 
 
-def chunk_rows(m: int, n: int, budget: int = PLAIN_CHUNK_BYTES) -> int:
+def chunk_rows(m: int, n: int, budget: int | None = None) -> int:
     """Marker rows per chunk so that an (rows, n) f32 block stays under
-    `budget` bytes (at least one row)."""
+    `budget` bytes (PLAIN_CHUNK_BYTES when not given; at least one row)."""
+    budget = PLAIN_CHUNK_BYTES if budget is None else budget
     return max(1, min(m, budget // (4 * max(n, 1))))
 
 
@@ -64,15 +65,6 @@ def _check(X: torch.Tensor, y: torch.Tensor) -> None:
             f"atx_int8: X on {X.device} but y on {y.device}")
 
 
-def _launcher():
-    lib = _build.library("atx_int8")
-    fn = lib.atx_int8_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def atx_int8(X: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """v = X @ y in f32.  On a CUDA tensor this launches the kernel on the
     current stream (and raises if it cannot); on a CPU tensor it runs
@@ -84,13 +76,12 @@ def atx_int8(X: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"atx_int8: unsupported device {X.device}")
     m, n = X.shape
     out = torch.empty(m, dtype=torch.float32, device=X.device)
+    fn = _build.function("atx_int8", "atx_int8_launch",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
     with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _launcher()(X.data_ptr(), y.data_ptr(), out.data_ptr(), m, n,
-                          stream)
-    if err != 0:
-        raise RuntimeError(
-            f"atx_int8 kernel launch failed: cudaError {err} at M={m}, N={n}")
+        err = fn(X.data_ptr(), y.data_ptr(), out.data_ptr(), m, n,
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, f"atx_int8 at M={m}, N={n}")
     atx_int8.launches += 1
     return out
 

@@ -7,9 +7,11 @@ K is built once per dataset, blocked over markers:
     K  = (G - t 1^T - 1 t^T + s2 11^T) / N
 
 so the w^2-scaled copy of X exists one block at a time.  int8 blocks are
-upcast to f32 and contracted in f32 with TF32 off — more exact than the JAX
-package, which rounds the w^2-weighted side to bf16 (spectral.py:111-133).
-This is plain torch.matmul: 2·M·N^2 FLOPs once per dataset.
+upcast to f32, packed-int4 blocks unpacked to their N f32 codes
+(spectral.py:89-110), and contracted in f32 with TF32 off — more exact than
+the JAX package, which rounds the w^2-weighted side to bf16
+(spectral.py:111-133).  This is plain torch.matmul, as JAX leaves it to XLA
+outside any Pallas kernel: 2·M·N^2 FLOPs once per dataset.
 
 The per-iteration spectral solver (shift_inverse and its blocked Cholesky,
 spectral.py:237-398) is not ported yet: see ROADMAP.md.
@@ -21,7 +23,8 @@ from typing import NamedTuple
 
 import torch
 
-from .operator import DesignMatrix, f64
+from .operator import PACKED4_DTYPE, DesignMatrix, f64
+from .packed4 import unpack_rows
 
 
 class GramFactor(NamedTuple):
@@ -39,7 +42,7 @@ def gram(dm: DesignMatrix, block: int = 16384) -> torch.Tensor:
     """K = A A^T as an (N, N) tensor in the operator's work dtype."""
     acc = dm.wd
     X = dm.X
-    m, n = X.shape
+    m, n = dm.m_pad, int(dm.n)  # packed X has N/2 byte columns
     w2 = (dm.msig * dm.msig).to(acc)
     u = w2 * dm.mave.to(acc)
     G = torch.zeros((n, n), dtype=acc, device=dm.device)
@@ -47,7 +50,7 @@ def gram(dm: DesignMatrix, block: int = 16384) -> torch.Tensor:
     block = max(1, min(block, m))
     for lo in range(0, m, block):
         hi = min(m, lo + block)
-        Xb = X[lo:hi].to(acc)
+        Xb = unpack_rows(X[lo:hi], acc) if X.dtype == PACKED4_DTYPE else X[lo:hi].to(acc)
         G += (w2[lo:hi, None] * Xb).T @ Xb
         t += u[lo:hi] @ Xb
     s2 = (u * dm.mave.to(acc)).sum()
