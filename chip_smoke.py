@@ -7,7 +7,7 @@ Phases (each prints its own lines; any failure ends the run non-zero):
 
   0. device   — a CUDA card must be present; prints nvidia-smi's name and
                 power limit and torch's device name.
-  1. build    — builds the five kernel libraries from vampomi_tpu_torch/csrc,
+  1. build    — builds the nine kernel libraries from vampomi_tpu_torch/csrc,
                 one nvcc each, all started together.
   2. kernel   — each kernel against its plain PyTorch version and against f64
                 at its main-path shape (int8 X of the north star,
@@ -15,6 +15,13 @@ Phases (each prints its own lines; any failure ends the run non-zero):
                 M = 2,097,152 x N = 10,240, both made on the card from a
                 seed) and at a ragged shape; bitwise repeatability; kernel
                 and plain timed with CUDA events in turns.
+  2b. probe   — the five probe kernels (read floor, tensor cores) against
+                their plain versions and f64 at full and ragged shapes on the
+                same X, then the two measurement tools' entry functions at
+                full shape (vampomi_tpu_torch/tools: matvec_floor_probe on
+                the int8 X, r4_probe on it and the first 1,048,576 rows of
+                the packed X), with launch counts; prints each tool's JSON
+                summary line.
   3. parity   — infere_linear on the card against the same port on the CPU
                 at M = 16,384 x N = 2,048 (data_sim), int8 and int4: eigen
                 for 4 iterations, cg for 3.
@@ -30,7 +37,8 @@ Phases (each prints its own lines; any failure ends the run non-zero):
                 design (2,048 causal markers: the same density), after the
                 int8 X is freed.
 
-The line before the last is the kernel record {"kernels": [...]}; the last
+The line before the last is the kernel record {"kernels": [...]}: ten
+kernels standing for the twelve TPU kernels of the repo; the last
 line is {"ok": true, "device": {...}}.  The engine's own per-iteration
 narration goes to log files in --log-dir when given; outputs and (by
 default) logs go to a temporary directory that is removed at the end.
@@ -47,6 +55,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 
@@ -64,24 +73,30 @@ from vampomi_tpu_torch.ops.atx_int8 import atx_int8, atx_int8_plain  # noqa: E40
 from vampomi_tpu_torch.ops.broadcast import (  # noqa: E402
     ax_batch_int8, ax_batch_int8_plain, ax_batch_packed4, ax_batch_packed4_plain,
 )
+from vampomi_tpu_torch.ops.mxu import (  # noqa: E402
+    atx_mxu, atx_mxu_plain, ax2_packed4_mxu, ax2_packed4_mxu_plain, ax_mxu, ax_mxu_plain,
+    bf16_round,
+)
 from vampomi_tpu_torch.ops.operator import (  # noqa: E402
     PACKED4_DTYPE, ax, ax_batch, build_design, design_from_codes, design_from_packed,
 )
 from vampomi_tpu_torch.ops.packed4 import (  # noqa: E402
-    atx_batch_packed4, atx_batch_packed4_plain, atx_packed4, atx_packed4_plain, unpack_rows,
+    atx_batch_packed4, atx_batch_packed4_plain, atx_packed4, atx_packed4_plain,
+)
+from vampomi_tpu_torch.ops.stream import (  # noqa: E402
+    stream_rowsum, stream_rowsum_plain, stream_sum, stream_sum_plain,
 )
 from vampomi_tpu_torch.sim.data_sim import simulate_iid, write_fixture  # noqa: E402
+from vampomi_tpu_torch.tools import (  # noqa: E402
+    KERNEL_CALLS, KERNEL_TOL, card_ms, exact_and_scale, in_turns, random_codes, rel_err,
+)
+from vampomi_tpu_torch.tools import matvec_floor_probe, r4_probe  # noqa: E402
 
 NS_M, NS_N = 1_048_576, 10_240          # the north-star shape (README.md, bench.py)
 I4_M = 2_097_152                        # the int4 configuration: twice the markers
 SEED = 20261016
-# kernel vs plain / f64: both sum f32 products, in different orders.  The
-# worst-case bound relative to sum|x||v| is (terms in the longest chain of
-# additions) * 2^-24; rounding errors of random signs meet ~sqrt(chain) *
-# 2^-24: ~6e-6 for the N = 10,240 products of a row, and no more for the
-# broadcast kernels, whose lanes each sum at most ~16k rows before the
-# partials meet.
-KERNEL_TOL = 1e-5
+# kernel vs plain / f64: KERNEL_TOL of sum|x||v| (vampomi_tpu_torch/tools
+# gives its reason)
 # card against CPU, both f32 with the same probes: sums in another order.
 # eigen is exact per iteration (1e-4 leaves room for 4 iterations of
 # amplification); CG stops at rel-residual 1e-5 and may stop one step
@@ -98,22 +113,44 @@ PRIOR3 = dict(probs=[0.9, 0.07, 0.03], vars=[0.0, 1e-3, 1e-2], h2=0.8)
 X1_MIN_INT4 = 0.3
 DTYPES = {"int8": torch.int8, "int4": PACKED4_DTYPE}
 
-# every kernel of the path: wrapper, plain version, source, the TPU kernel
-# it replaces
+
+class Kernel(NamedTuple):
+    fn: Callable            # the wrapper (counts its launches)
+    plain: Callable         # its plain PyTorch version
+    source: str             # the CUDA source it is built from
+    replaces: str           # the TPU kernels it stands for, "file:line; ..."
+    kind: str               # "vec": X y; "rows": X Ys; "cols": X^T W; "stream"
+    bf16: bool = False      # the vector is rounded to bf16 (tensor cores)
+
+
+CSRC = "vampomi_tpu_torch/csrc/"
+# every kernel of the port, each with the TPU kernels it replaces (#9 and #11
+# are the r4 probe's prototypes of #1 and #2: the same functions)
 KERNELS = {
-    "atx_int8": (atx_int8, atx_int8_plain, "vampomi_tpu_torch/csrc/atx_int8.cu",
-                 "vampomi_tpu/ops/pallas_matvec.py:55"),
-    "ax_batch_int8": (ax_batch_int8, ax_batch_int8_plain,
-                      "vampomi_tpu_torch/csrc/ax_batch_int8.cu", "tools/r4_probe.py:77"),
-    "atx_packed4": (atx_packed4, atx_packed4_plain, "vampomi_tpu_torch/csrc/atx_packed4.cu",
-                    "vampomi_tpu/ops/pallas_matvec.py:89"),
-    "ax_batch_packed4": (ax_batch_packed4, ax_batch_packed4_plain,
-                         "vampomi_tpu_torch/csrc/ax_batch_packed4.cu",
-                         "vampomi_tpu/ops/pallas_matvec.py:127"),
-    "atx_batch_packed4": (atx_batch_packed4, atx_batch_packed4_plain,
-                          "vampomi_tpu_torch/csrc/atx_batch_packed4.cu",
-                          "vampomi_tpu/ops/pallas_matvec.py:183"),
+    "atx_int8": Kernel(atx_int8, atx_int8_plain, CSRC + "atx_int8.cu",
+                       "vampomi_tpu/ops/pallas_matvec.py:55; tools/r4_probe.py:52", "vec"),
+    "ax_batch_int8": Kernel(ax_batch_int8, ax_batch_int8_plain, CSRC + "ax_batch_int8.cu",
+                            "tools/r4_probe.py:77", "cols"),
+    "atx_packed4": Kernel(atx_packed4, atx_packed4_plain, CSRC + "atx_packed4.cu",
+                          "vampomi_tpu/ops/pallas_matvec.py:89; tools/r4_probe.py:109", "vec"),
+    "ax_batch_packed4": Kernel(ax_batch_packed4, ax_batch_packed4_plain,
+                               CSRC + "ax_batch_packed4.cu",
+                               "vampomi_tpu/ops/pallas_matvec.py:127", "cols"),
+    "atx_batch_packed4": Kernel(atx_batch_packed4, atx_batch_packed4_plain,
+                                CSRC + "atx_batch_packed4.cu",
+                                "vampomi_tpu/ops/pallas_matvec.py:183", "rows"),
+    "stream_sum": Kernel(stream_sum, stream_sum_plain, CSRC + "stream.cu",
+                         "tools/matvec_floor_probe.py:83", "stream"),
+    "stream_rowsum": Kernel(stream_rowsum, stream_rowsum_plain, CSRC + "stream.cu",
+                            "tools/matvec_floor_probe.py:112", "stream"),
+    "atx_mxu": Kernel(atx_mxu, atx_mxu_plain, CSRC + "atx_mxu.cu",
+                      "tools/matvec_floor_probe.py:135", "vec", bf16=True),
+    "ax_mxu": Kernel(ax_mxu, ax_mxu_plain, CSRC + "ax_mxu.cu",
+                     "tools/matvec_floor_probe.py:168", "cols", bf16=True),
+    "ax2_packed4_mxu": Kernel(ax2_packed4_mxu, ax2_packed4_mxu_plain, CSRC + "ax2_packed4_mxu.cu",
+                              "tools/r4_probe.py:139", "cols", bf16=True),
 }
+LIBRARIES = list(dict.fromkeys(os.path.basename(k.source)[:-3] for k in KERNELS.values()))
 
 
 def log(msg: str) -> None:
@@ -137,29 +174,13 @@ def engine_log(log_dir: str, name: str):
         yield
 
 
-def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
-    """Median milliseconds of fn() on the card, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return float(np.median(times))
-
-
 def launches() -> dict:
-    return {name: k[0].launches for name, k in KERNELS.items()}
+    return {name: k.fn.launches for name, k in KERNELS.items()}
 
 
 def reset_launches() -> None:
     for k in KERNELS.values():
-        k[0].launches = 0
+        k.fn.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -184,70 +205,29 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    _build.build_all(list(KERNELS))
+    _build.build_all(LIBRARIES)
     each = ", ".join(f"{n} {s:.1f}s" for n, s in _build.BUILD_SECONDS.items())
-    log(f"[build] {len(KERNELS)} libraries from vampomi_tpu_torch/csrc in "
+    log(f"[build] {len(LIBRARIES)} libraries from vampomi_tpu_torch/csrc in "
         f"{time.perf_counter() - t0:.2f}s, in parallel (nvcc until seen done: {each})")
-
-
-def random_x(m: int, nb: int, dtype: torch.dtype, seed: int, device) -> torch.Tensor:
-    """Uniform codes made on the device in row chunks: int8 in [-127, 127],
-    or uint8 bytes (two uniform nibbles, codes in [-8, 7])."""
-    g = torch.Generator(device=device)
-    g.manual_seed(seed)
-    lo, hi = (-127, 128) if dtype == torch.int8 else (0, 256)
-    X = torch.empty((m, nb), dtype=dtype, device=device)
-    rows = max(1, (256 << 20) // nb)
-    for r in range(0, m, rows):
-        r1 = min(m, r + rows)
-        X[r:r1] = torch.randint(lo, hi, (r1 - r, nb), dtype=dtype, device=device, generator=g)
-    return X
-
-
-def codes64(X: torch.Tensor) -> torch.Tensor:
-    return unpack_rows(X, torch.float64) if X.dtype == PACKED4_DTYPE else X.double()
-
-
-def exact_and_scale(X: torch.Tensor, V: torch.Tensor, broadcast: bool):
-    """The f64 product of the codes of X with V, and |codes| @ |V|: per row
-    of X (X V), or summed over rows (X^T V), one chunk of rows at a time."""
-    V64 = V.double()
-    if broadcast:
-        ex = torch.zeros((codes64(X[:1]).shape[1], V.shape[1]), dtype=torch.float64,
-                         device=X.device)
-        sc = torch.zeros_like(ex)
-    else:
-        ex = torch.empty((X.shape[0], V.shape[1]), dtype=torch.float64, device=X.device)
-        sc = torch.empty_like(ex)
-    for r in range(0, X.shape[0], 16384):
-        r1 = min(X.shape[0], r + 16384)
-        C = codes64(X[r:r1])
-        if broadcast:
-            ex += C.T @ V64[r:r1]
-            sc += C.abs().T @ V64[r:r1].abs()
-        else:
-            ex[r:r1] = C @ V64
-            sc[r:r1] = C.abs() @ V64.abs()
-    return ex, sc
 
 
 def check_kernel(name: str, X: torch.Tensor, V: torch.Tensor, timed: bool) -> dict:
     """One kernel against its plain version and the exact f64 product on
-    the same inputs (errors relative to sum |x||v|), bitwise repeatability,
+    the same inputs (errors relative to sum |x||v|; the tensor-core kernels
+    against the product with V rounded to bf16), bitwise repeatability,
     and, when timed, kernel and plain by CUDA events in turns (plain,
-    kernel, kernel, plain).  V is (rows, K); atx-style kernels take V[:, 0]."""
-    kern, plain, _, _ = KERNELS[name]
-    vec = name in ("atx_int8", "atx_packed4")
-    broadcast = name.startswith("ax_batch")
-    run = (lambda f: f(X, V[:, 0].contiguous())[:, None]) if vec else (lambda f: f(X, V))
+    kernel, kernel, plain).  V is (rows, K); "vec" kernels take V[:, 0]."""
+    k = KERNELS[name]
+    kern, plain = k.fn, k.plain
+    run = (lambda f: f(X, V[:, 0].contiguous())[:, None]) if k.kind == "vec" else \
+        (lambda f: f(X, V))
     got = run(kern)
     want = run(plain)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()), f"{name}: kernel output not finite")
-    ex, sc = exact_and_scale(X, V, broadcast)
-    sc = sc.clamp_min(1e-30)
-    err_plain = float(((got.double() - want.double()).abs() / sc).max())
-    err_ref = float(((got.double() - ex).abs() / sc).max())
+    ex, sc = exact_and_scale(X, bf16_round(V) if k.bf16 else V, k.kind == "cols")
+    err_plain = rel_err(got, want, sc)
+    err_ref = rel_err(got, ex, sc)
     max_abs = float((got - want).abs().max())
     shape = f"X {tuple(X.shape)} {str(X.dtype).replace('torch.', '')}, K={V.shape[1]}"
     log(f"[kernel] {name} {shape}: max rel err vs plain {err_plain:.3e}, vs f64 "
@@ -257,14 +237,12 @@ def check_kernel(name: str, X: torch.Tensor, V: torch.Tensor, timed: bool) -> di
     check(torch.equal(got, run(kern)), f"{name} not bitwise repeatable at {shape}")
     rec = dict(max_abs_err=max_abs)
     if timed:
-        t_plain = [cuda_ms(lambda: run(plain), reps=5, warmup=1)]
-        t_kern = [cuda_ms(lambda: run(kern)), cuda_ms(lambda: run(kern))]
-        t_plain.append(cuda_ms(lambda: run(plain), reps=5, warmup=1))
-        ms, plain_ms = float(np.median(t_kern)), float(np.median(t_plain))
+        ms, plain_ms, t_kern, t_plain = in_turns(lambda: run(kern), lambda: run(plain))
         gb = X.numel() / 1e9
         log(f"[kernel] {name} {shape}: {ms:.3f} ms ({gb / ms * 1e3:.1f} GB/s of X); plain "
-            f"{plain_ms:.3f} ms ({gb / plain_ms * 1e3:.1f} GB/s); medians of 7 (kernel) and "
-            f"5 (plain) after warm-up, runs {t_kern} / {t_plain}")
+            f"{plain_ms:.3f} ms ({gb / plain_ms * 1e3:.1f} GB/s); medians of 7 samples of "
+            f"{KERNEL_CALLS} calls (kernel) and 5 calls (plain) after warm-up, runs {t_kern} / "
+            f"{t_plain}")
         rec.update(ms=ms, plain_ms=plain_ms)
     return rec
 
@@ -279,8 +257,8 @@ def phase_kernel(dev: str) -> tuple[torch.Tensor, torch.Tensor, dict]:
     def rhs(rows, k):
         return torch.randn((rows, k), device=dev, generator=g)
 
-    X8 = random_x(NS_M, NS_N, torch.int8, SEED, dev)
-    X4 = random_x(I4_M, NS_N // 2, PACKED4_DTYPE, SEED + 2, dev)
+    X8 = random_codes(NS_M, NS_N, torch.int8, SEED, dev)
+    X4 = random_codes(I4_M, NS_N // 2, PACKED4_DTYPE, SEED + 2, dev)
     plan = [  # (name, X, rows of V, K values; the last K is timed)
         ("atx_int8", X8, NS_N, [1]),
         ("ax_batch_int8", X8, NS_M, [1, 2]),
@@ -302,10 +280,79 @@ def phase_kernel(dev: str) -> tuple[torch.Tensor, torch.Tensor, dict]:
                               ("atx_packed4", PACKED4_DTYPE, 1000, 1002),
                               ("ax_batch_packed4", PACKED4_DTYPE, 1000, 1002),
                               ("atx_batch_packed4", PACKED4_DTYPE, 1000, 1002)):
-        Xr = random_x(m, n if dtype == torch.int8 else n // 2, dtype, SEED + 3, dev)
+        Xr = random_codes(m, n if dtype == torch.int8 else n // 2, dtype, SEED + 3, dev)
         for k in ((1,) if name.startswith("atx_") and "batch" not in name else (1, 2, 3)):
             check_kernel(name, Xr, rhs(m if name.startswith("ax_batch") else n, k), timed=False)
     return X8, X4, recs
+
+
+def check_stream(name: str, X: torch.Tensor) -> dict:
+    """A read-floor kernel against its plain version: bitwise, and
+    repeatable."""
+    k = KERNELS[name]
+    got, want = k.fn(X), k.plain(X)
+    shape = f"X {tuple(X.shape)} int8"
+    check(torch.equal(got, want), f"{name} differs from its plain version at {shape}")
+    check(torch.equal(got, k.fn(X)), f"{name} not bitwise repeatable at {shape}")
+    log(f"[probe] {name} {shape}: bitwise equal to its plain version and repeatable")
+    return dict(max_abs_err=float((got.long() - want.long()).abs().max()))
+
+
+# the probe kernels: each must launch on the probe path
+PROBE_KERNELS = ("stream_sum", "stream_rowsum", "atx_mxu", "ax_mxu", "ax2_packed4_mxu")
+
+
+def phase_probe(dev: str, X8: torch.Tensor, X4: torch.Tensor) -> tuple[dict, dict]:
+    """The probe kernels at full shape (the int8 X and the first 1,048,576
+    rows of the packed X: the tools' own shapes) and at ragged ones, then
+    the two tools' entry functions on the same X with the launch counts set
+    to 0 just before and read just after.  Returns {name: record} with the
+    tools' times in turns with the plain versions, and the counts."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 4)
+    X4r = X4[:NS_M]  # a row view: no new memory
+    recs = {}
+
+    def keep(name, r):
+        if name in recs:
+            r["max_abs_err"] = max(r["max_abs_err"], recs[name]["max_abs_err"])
+        recs[name] = r
+
+    for name in ("stream_sum", "stream_rowsum"):
+        keep(name, check_stream(name, X8))
+        keep(name, check_stream(name, random_codes(1000, 1001, torch.int8, SEED + 3, dev)))
+        # a view one row in: not 16-byte aligned, so the byte-per-lane path
+        keep(name, check_stream(name, random_codes(1001, 1001, torch.int8, SEED + 5, dev)[1:]))
+    plan = [("atx_mxu", X8, NS_N, [1]), ("ax_mxu", X8, NS_M, [1, 2]),
+            ("ax2_packed4_mxu", X4r, NS_M, [1, 2])]
+    for name, X, rows, ks in plan:
+        for k in ks:
+            keep(name, check_kernel(name, X, torch.randn((rows, k), device=dev, generator=g),
+                                    timed=False))
+    for name, dtype, m, n in (("atx_mxu", torch.int8, 1000, 1001),
+                              ("ax_mxu", torch.int8, 1000, 1002),
+                              ("ax2_packed4_mxu", PACKED4_DTYPE, 1000, 1002)):
+        Xr = random_codes(m, n if dtype == torch.int8 else n // 2, dtype, SEED + 3, dev)
+        for k in ((1,) if name == "atx_mxu" else (1, 2, 3)):
+            V = torch.randn((n if name == "atx_mxu" else m, k), device=dev, generator=g)
+            keep(name, check_kernel(name, Xr, V, timed=False))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    reset_launches()
+    floor = matvec_floor_probe.probe(X8, SEED)
+    r4 = r4_probe.probe(X8, X4r, SEED)
+    torch.cuda.synchronize()
+    counts = launches()
+    log(json.dumps(floor))
+    log(json.dumps(r4))
+    log(f"[probe] both tools at full shape in {time.perf_counter() - t0:.1f}s: read floor "
+        f"{floor['read_floor_gbps']:.1f} GB/s of X; kernel launches "
+        f"{ {n: c for n, c in counts.items() if c} }")
+    timed = {**floor["results"], **r4["results"]}
+    for name in PROBE_KERNELS:
+        recs[name].update(ms=timed[name]["ms"], plain_ms=timed[name]["plain_ms"])
+    return recs, {name: counts[name] for name in PROBE_KERNELS}
 
 
 def _params_rows(d: str, name: str) -> np.ndarray:
@@ -429,7 +476,7 @@ def phase_main(dtype: str, X: torch.Tensor, log_dir: str, out_dir: str, x1_min: 
         f"{X.numel() / 2**30:.2f} GiB of X), {causal} causal, h2=0.8, prior fixed at the "
         f"truth: built in {time.perf_counter() - t0:.1f}s")
     W = torch.randn((m, 2), device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
-    ms = cuda_ms(lambda: ax_batch(dm, W), reps=5, warmup=1)
+    ms = card_ms(lambda: ax_batch(dm, W), reps=5, warmup=1, calls=KERNEL_CALLS)
     log(f"[main {dtype}] operator ax_batch (K=2): {ms:.3f} ms ({X.numel() / ms / 1e6:.1f} GB/s "
         f"of X)")
     del W
@@ -488,6 +535,8 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         phase_build()
         X8, X4, recs = phase_kernel(dev)
+        probe_recs, probe_counts = phase_probe(dev, X8, X4)
+        recs.update(probe_recs)
         for dtype in DTYPES:
             phase_parity(dev, dtype, log_dir, out_dir)
         phase_cli(dev, log_dir)
@@ -497,13 +546,14 @@ def main(argv=None) -> int:
         counts.update({name: c for name, c in phase_main(
             "int4", X4, log_dir, out_dir, x1_min=X1_MIN_INT4).items()
             if name in ("atx_packed4", "ax_batch_packed4", "atx_batch_packed4")})
+        counts.update(probe_counts)
         for name, c in counts.items():
-            check(c > 0, f"{name} was never launched on its main path")
+            check(c > 0, f"{name} was never launched on its own path")
         log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
-    kernels = [dict(name=name, route="cuda", source=src, replaces=rep, launches=counts[name],
-                    max_abs_err=recs[name]["max_abs_err"], ms=recs[name]["ms"],
-                    plain_ms=recs[name]["plain_ms"])
-               for name, (_, _, src, rep) in KERNELS.items()]
+    kernels = [dict(name=name, route="cuda", source=k.source, replaces=k.replaces,
+                    launches=counts[name], max_abs_err=recs[name]["max_abs_err"],
+                    ms=recs[name]["ms"], plain_ms=recs[name]["plain_ms"])
+               for name, k in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

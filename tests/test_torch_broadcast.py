@@ -125,10 +125,16 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     from vampomi_tpu_torch.ops import _build
 
     real = {n: {p.name for p in _build.sources(n)} for n in
-            ("atx_int8", "ax_batch_int8", "ax_batch_packed4", "atx_packed4", "atx_batch_packed4")}
+            ("atx_int8", "ax_batch_int8", "ax_batch_packed4", "atx_packed4", "atx_batch_packed4",
+             "stream", "atx_mxu", "ax_mxu", "ax2_packed4_mxu")}
     assert real["ax_batch_int8"] == {"ax_batch_int8.cu", "xtw.cuh", "codes.cuh"}
     assert real["atx_batch_packed4"] == {"atx_batch_packed4.cu", "xy_packed4.cuh", "codes.cuh"}
     assert real["atx_int8"] == {"atx_int8.cu"}
+    assert real["stream"] == {"stream.cu"}
+    assert real["atx_mxu"] == {"atx_mxu.cu", "mma_bf16.cuh", "codes.cuh"}
+    mxu_xtw = {"mxu_xtw.cuh", "mma_bf16.cuh", "xtw.cuh", "codes.cuh"}
+    assert real["ax_mxu"] == {"ax_mxu.cu"} | mxu_xtw
+    assert real["ax2_packed4_mxu"] == {"ax2_packed4_mxu.cu"} | mxu_xtw
     (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda_runtime.h>\n')
     (tmp_path / "a.cuh").write_text('  #  include "b.cuh"\n')
     (tmp_path / "b.cuh").write_text("// b\n")
@@ -137,3 +143,19 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     before = _build._library_path("k")
     (tmp_path / "b.cuh").write_text("// b, edited\n")
     assert _build._library_path("k") != before
+
+
+def test_entry_points_are_looked_up_once(monkeypatch):
+    """A wrapper asks for its C entry point on every launch: the library is
+    loaded and the symbol resolved once per process."""
+    import ctypes
+
+    from vampomi_tpu_torch.ops import _build
+
+    calls = []
+    libc = ctypes.CDLL(None)
+    monkeypatch.setattr(_build, "_FUNCTIONS", {})
+    monkeypatch.setattr(_build, "library", lambda name: calls.append(name) or libc)
+    first = _build.function("libc", "abs", [ctypes.c_int])
+    assert _build.function("libc", "abs", [ctypes.c_int]) is first
+    assert calls == ["libc"] and first(-3) == 3

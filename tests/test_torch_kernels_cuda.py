@@ -11,20 +11,34 @@ only torch is installed:
 
 (`--noconftest` skips tests/conftest.py, which configures jax for the rest
 of the suite).  Tolerances: f32 sums in another order, relative to
-sum |x||v|, below 1e-6."""
+sum |x||v|, below 1e-6; the tensor-core kernels' f32 sums do not round like
+IEEE adds, and are held to chip_smoke.py's 1e-5 (KERNEL_TOL); the integer
+read-floor sums are bitwise."""
 
 import numpy as np
 import pytest
 import torch
 
+from vampomi_tpu_torch.config import RunConfig
+from vampomi_tpu_torch.engine import linear as tlin
+from vampomi_tpu_torch.io import bin_io
 from vampomi_tpu_torch.ops import operator as top
 from vampomi_tpu_torch.ops.atx_int8 import atx_int8, atx_int8_plain
 from vampomi_tpu_torch.ops.broadcast import (
     ax_batch_int8, ax_batch_int8_plain, ax_batch_packed4, ax_batch_packed4_plain,
 )
+from vampomi_tpu_torch.ops.mxu import (
+    atx_mxu, atx_mxu_plain, ax2_packed4_mxu, ax2_packed4_mxu_plain, ax_mxu, ax_mxu_plain,
+    bf16_round,
+)
 from vampomi_tpu_torch.ops.packed4 import (
     atx_batch_packed4, atx_batch_packed4_plain, atx_packed4, atx_packed4_plain, unpack_rows,
 )
+from vampomi_tpu_torch.ops.stream import (
+    stream_rowsum, stream_rowsum_plain, stream_sum, stream_sum_plain,
+)
+from vampomi_tpu_torch.sim.data_sim import simulate_iid
+from vampomi_tpu_torch.tools import KERNEL_TOL
 
 pytestmark = pytest.mark.cuda
 
@@ -41,12 +55,14 @@ def _rel(got, want, scale):
     return ((got.double() - want.double()).abs() / scale.clamp_min(1e-30)).max().item()
 
 
-def _check(kern, plain, X, V, A):
-    """kern(X, V) against plain(X, V) and the f64 A @ V; repeatable."""
+def _check(kern, plain, X, V, A, tol=1e-6, V_exact=None):
+    """kern(X, V) against plain(X, V) and the f64 A @ V_exact (V unless
+    given); repeatable."""
     got = kern(X, V)
-    scale = A.abs() @ V.double().abs()
-    assert _rel(got, plain(X, V), scale) < 1e-6
-    assert _rel(got, A @ V.double(), scale) < 1e-6
+    V_exact = V if V_exact is None else V_exact
+    scale = A.abs() @ V_exact.double().abs()
+    assert _rel(got, plain(X, V), scale) < tol
+    assert _rel(got, A @ V_exact.double(), scale) < tol
     assert torch.equal(got, kern(X, V))
 
 
@@ -116,3 +132,104 @@ def test_quantized_operator_on_card_matches_cpu(cuda_device, dtype):
         got = op(card, torch.as_tensor(v, device=cuda_device)).cpu().numpy()
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5 * np.abs(want).max())
     assert all(k.launches > b for k, b in zip(kernels, before))
+
+
+@pytest.mark.parametrize("shape", [(1000, 1001), (4096, 10240), (77, 16), (3, 5)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_stream_kernels_match_plain_bitwise_on_card(cuda_device, shape, offset):
+    """The read-floor sums equal the plain int64 sums wrapped to int32, bit
+    for bit, on aligned X and on a view one row in (16-byte loads off when
+    N % 16 != 0)."""
+    m, n = shape
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(m + offset)
+    X = torch.randint(-128, 128, (m + offset, n), dtype=torch.int8, device=cuda_device,
+                      generator=g)[offset:]
+    before = (stream_sum.launches, stream_rowsum.launches)
+    for kern, plain in ((stream_sum, stream_sum_plain), (stream_rowsum, stream_rowsum_plain)):
+        got = kern(X)
+        assert got.dtype == torch.int32
+        assert torch.equal(got, plain(X))
+        assert torch.equal(got, kern(X))
+    assert (stream_sum.launches, stream_rowsum.launches) == (before[0] + 2, before[1] + 2)
+
+
+def test_stream_sum_wraps_like_int32_on_card(cuda_device):
+    X = torch.full((4096, 4200), 127, dtype=torch.int8, device=cuda_device)
+    want = np.sum(np.full(4096 * 4200, 127, dtype=np.int32), dtype=np.int32)
+    assert int(stream_sum(X)) == int(want) == int(stream_sum_plain(X))
+
+
+@pytest.mark.parametrize("shape", [(1000, 1001), (4096, 10240), (77, 16), (1003, 96)])
+def test_atx_mxu_kernel_matches_plain_on_card(cuda_device, shape):
+    m, n = shape
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(m)
+    X = torch.randint(-127, 128, (m, n), dtype=torch.int8, device=cuda_device, generator=g)
+    y = torch.randn(n, 1, device=cuda_device, generator=g)
+    before = atx_mxu.launches
+    _check(lambda a, v: atx_mxu(a, v[:, 0].contiguous())[:, None],
+           lambda a, v: atx_mxu_plain(a, v[:, 0].contiguous())[:, None], X, y, X.double(),
+           tol=KERNEL_TOL, V_exact=bf16_round(y))
+    assert atx_mxu.launches == before + 2
+
+
+@pytest.mark.parametrize("shape", [(1000, 1002), (4096, 10240), (77, 16)])
+@pytest.mark.parametrize("k", [1, 2, 8])
+def test_ax_mxu_kernels_match_plain_on_card(cuda_device, shape, k):
+    """ax_mxu on int8 X of the shape, ax2_packed4_mxu on packed X of half its
+    width."""
+    m, n = shape
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(m + k)
+    X = torch.randint(-127, 128, (m, n), dtype=torch.int8, device=cuda_device, generator=g)
+    Xp = torch.randint(0, 256, (m, n // 2), dtype=torch.uint8, device=cuda_device, generator=g)
+    W = torch.randn(m, k, device=cuda_device, generator=g)
+    before = (ax_mxu.launches, ax2_packed4_mxu.launches)
+    _check(ax_mxu, ax_mxu_plain, X, W, X.double().T, tol=KERNEL_TOL, V_exact=bf16_round(W))
+    _check(ax2_packed4_mxu, ax2_packed4_mxu_plain, Xp, W, unpack_rows(Xp, torch.float64).T,
+           tol=KERNEL_TOL, V_exact=bf16_round(W))
+    assert (ax_mxu.launches, ax2_packed4_mxu.launches) == (before[0] + 2, before[1] + 2)
+
+
+def test_dumps_byte_identical_and_pinned_on_card(cuda_device, tmp_path, monkeypatch):
+    """A short eigen run with the dumps on: the .bin files written through
+    the side-stream copies are byte-identical to the same run with the
+    copies made synchronously on the compute stream, and the copies land in
+    pinned host memory."""
+    fx = simulate_iid(n=512, m=2048, lam=0.1, h2=0.8, seed=3)
+    y = fx.y * np.sqrt((511.0) / np.sum((fx.y - fx.y.mean()) ** 2))
+    copies = []
+
+    class Recording(bin_io.HostStager):
+        def copy(self, vecs):
+            c = super().copy(vecs)
+            copies.append(c)
+            return c
+
+    class Synchronous:
+        def __init__(self, device):
+            pass
+
+        def copy(self, vecs):
+            return bin_io.HostCopy([v.cpu() for v in vecs])
+
+    names = {}
+    for name, stager in (("side", Recording), ("sync", Synchronous)):
+        monkeypatch.setattr(tlin, "HostStager", stager)
+        for dtype in (torch.int8, top.PACKED4_DTYPE):
+            dm = top.build_design(fx.X.T, compute_dtype=dtype, device=cuda_device)
+            out = f"{name}_{dtype}".replace("torch.", "")
+            cfg = RunConfig(out_dir=str(tmp_path), out_name=out, iterations=4,
+                            lmmse_solver="eigen", stop_criteria_thr=0.0, device="cuda", seed=1,
+                            probs=[0.9, 0.07, 0.03], vars=[0.0, 1e-3, 1e-2], h2=0.8)
+            tlin.infere_linear(dm, y, cfg, true_signal=fx.beta)
+            names.setdefault(name, []).append(out)
+    assert len(copies) == 8
+    assert all(t.is_pinned() for c in copies for t in c.wait())
+    for side, sync in zip(names["side"], names["sync"]):
+        for it in range(1, 5):
+            for kind in ("", "r1_"):
+                a = (tmp_path / f"{side}_{kind}it_{it}.bin").read_bytes()
+                b = (tmp_path / f"{sync}_{kind}it_{it}.bin").read_bytes()
+                assert len(a) == 8 * 2048 and a == b, (side, kind, it)

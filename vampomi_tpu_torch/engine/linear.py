@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from ..config import RunConfig
-from ..io.bin_io import iteration_file, write_marker_file
+from ..io.bin_io import HostStager, iteration_file, write_marker_file
 from ..io.csv_writer import PositionalCSV
 from ..ops.cg import cg_solve
 from ..ops.eigen import EigenFactor, build_eigen, eigen_weights
@@ -519,15 +519,19 @@ def infere_linear(
     # layout (two codes per byte), else the storage itemsize
     itemsize = 0.5 if dm.X.dtype == PACKED4_DTYPE else dm.X.element_size()
 
-    # device→host artifact IO overlaps the next iteration's compute
+    # device→host artifact IO overlaps the next iteration's compute: the
+    # copies run on a side stream (HostStager), the f64 scaling and the
+    # writes on the IO thread
     writer = AsyncWriter()
+    stager = HostStager(dev)
 
-    def _dump_iteration(k, x1_dev, r1_dev):
+    def _dump_iteration(k, copy):
+        x1_host, r1_host = copy.wait()
         write_marker_file(
-            iteration_file(cfg.out_dir, cfg.out_name, k), x1_dev, Mt, sqrt_n)
+            iteration_file(cfg.out_dir, cfg.out_name, k), x1_host, Mt, sqrt_n)
         write_marker_file(
             iteration_file(cfg.out_dir, cfg.out_name, k, kind="r1_"),
-            r1_dev, Mt, sqrt_n)
+            r1_host, Mt, sqrt_n)
 
     metrics_history = []
     it_done = 0
@@ -587,7 +591,7 @@ def infere_linear(
             # per-iteration artifacts (src/vamp.cpp:234-252): x1_hat/sqrt(N)
             # and the r1 denoised this iteration, written on the IO thread
             if write_outputs:
-                writer.submit(_dump_iteration, it, x1_hat, r1_in)
+                writer.submit(_dump_iteration, it, stager.copy((x1_hat, r1_in)))
 
             metrics_history.append(metrics)
             params_row = [alpha1_h, gam1_denoise, alpha2_h, gam2_h, gamw_h]

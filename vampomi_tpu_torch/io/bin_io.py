@@ -136,6 +136,56 @@ def parse_iteration(file_name: str) -> str:
     return base[pos1 + 3 : base.rfind(".bin")]
 
 
+class HostCopy:
+    """Host copies of device vectors in flight: `wait()` returns them once
+    they have landed."""
+
+    def __init__(self, tensors: list[torch.Tensor], done=None):
+        self._tensors = tensors
+        self._done = done
+
+    def wait(self) -> list[torch.Tensor]:
+        if self._done is not None:
+            self._done.synchronize()
+        return self._tensors
+
+
+class HostStager:
+    """Copies per-iteration vectors to the host for the artifact writer
+    without stalling the compute stream.
+
+    On a card, `copy` records an event on the current stream after the work
+    that produced the vectors, makes a side stream wait on it, and copies
+    each vector there into a pinned host buffer; `record_stream` keeps the
+    caching allocator from handing a source to new work before its copy is
+    done.  The writer thread waits on the copies' own event only.  The
+    pinned buffers come from PyTorch's caching host allocator, which reuses
+    a buffer once the writer has dropped it, so the writer's backlog bounds
+    how many exist.  (A plain `.cpu()` on the writer thread instead copies
+    to pageable memory on the compute stream, behind the next iteration's
+    work.)  On the CPU, `copy` hands back the vectors themselves."""
+
+    def __init__(self, device: torch.device):
+        self._stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def copy(self, vecs) -> HostCopy:
+        if self._stream is None:
+            return HostCopy(list(vecs))
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self._stream.device))
+        self._stream.wait_event(ready)
+        host = []
+        with torch.cuda.stream(self._stream):
+            for v in vecs:
+                buf = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                buf.copy_(v, non_blocking=True)
+                v.record_stream(self._stream)
+                host.append(buf)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        return HostCopy(host, done)
+
+
 def write_marker_file(path: str, vec: torch.Tensor, mt: int, divisor: float) -> None:
     """Write an M-vector tensor (on any device) to an f64 artifact file,
     truncated to the Mt real markers and divided by `divisor` on the host in

@@ -33,6 +33,7 @@ NVCC_FLAGS = (
 _INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_FUNCTIONS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 # seconds from the start of each build in this process until it was seen
 # finished (0.0 when the library was already built)
 BUILD_SECONDS: dict[str, float] = {}
@@ -120,10 +121,15 @@ def library(name: str) -> ctypes.CDLL:
 
 def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     """The C entry point `symbol` of library `name`, returning a cudaError_t
-    as an int."""
-    fn = getattr(library(name), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    as an int; looked up once per process (a wrapper calls this on every
+    launch, and the lookup cost ~60 us of host time a call on the H100's
+    host)."""
+    fn = _FUNCTIONS.get((name, symbol))
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[(name, symbol)] = fn
     return fn
 
 

@@ -29,7 +29,7 @@ import torch
 
 from . import _build
 from .atx_int8 import chunk_rows
-from .packed4 import check_packed, check_rhs, unpack_rows
+from .packed4 import check_int8, check_packed, check_rhs, unpack_rows
 
 
 def _xtw_plain(X: torch.Tensor, W: torch.Tensor, n: int, rows_of) -> torch.Tensor:
@@ -56,8 +56,10 @@ def ax_batch_packed4_plain(Xp: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     return _xtw_plain(Xp, W, 2 * Xp.shape[1], unpack_rows)
 
 
-def _launch(lib: str, X: torch.Tensor, W: torch.Tensor, n: int) -> torch.Tensor:
-    """Run the broadcast kernel of library `lib` on the card: (N, K) f32."""
+def launch_xtw(lib: str, X: torch.Tensor, W: torch.Tensor, n: int) -> torch.Tensor:
+    """Run the broadcast kernel of library `lib` on the card: (N, K) f32.
+    The library has the two entry points of `csrc/xtw.cuh`'s signatures,
+    `<lib>_splits` and `<lib>_launch`."""
     m, nb = X.shape
     k = W.shape[1]
     splits_fn = _build.function(lib, f"{lib}_splits",
@@ -81,15 +83,11 @@ def _launch(lib: str, X: torch.Tensor, W: torch.Tensor, n: int) -> torch.Tensor:
 def ax_batch_int8(X: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """Z = X^T W for (M, N) int8 codes and (M, K) f32 W, K <= 8, in f32 →
     (N, K)."""
-    if X.dtype != torch.int8:
-        raise TypeError(f"ax_batch_int8: X must be int8, got {X.dtype}")
-    if X.dim() != 2 or X.shape[0] < 1 or X.shape[1] < 1 or not X.is_contiguous():
-        raise ValueError(f"ax_batch_int8: need a non-empty contiguous (M, N) X, got "
-                         f"{tuple(X.shape)}")
+    check_int8(X, "ax_batch_int8")
     check_rhs(X, W, X.shape[0], "ax_batch_int8")
     if X.device.type == "cpu":
         return ax_batch_int8_plain(X, W)
-    out = _launch("ax_batch_int8", X, W, X.shape[1])
+    out = launch_xtw("ax_batch_int8", X, W, X.shape[1])
     ax_batch_int8.launches += 1
     return out
 
@@ -101,7 +99,7 @@ def ax_batch_packed4(Xp: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     check_rhs(Xp, W, Xp.shape[0], "ax_batch_packed4")
     if Xp.device.type == "cpu":
         return ax_batch_packed4_plain(Xp, W)
-    out = _launch("ax_batch_packed4", Xp, W, 2 * Xp.shape[1])
+    out = launch_xtw("ax_batch_packed4", Xp, W, 2 * Xp.shape[1])
     ax_batch_packed4.launches += 1
     return out
 

@@ -72,6 +72,15 @@ def check_packed(Xp: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: X must be contiguous")
 
 
+def check_int8(X: torch.Tensor, what: str) -> None:
+    if X.dtype != torch.int8:
+        raise TypeError(f"{what}: X must be int8, got {X.dtype}")
+    if X.dim() != 2 or X.shape[0] < 1 or X.shape[1] < 1 or not X.is_contiguous():
+        raise ValueError(f"{what}: need a non-empty contiguous (M, N) X, got {tuple(X.shape)}")
+    if X.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {X.device}")
+
+
 def check_rhs(X: torch.Tensor, V: torch.Tensor, rows: int, what: str) -> int:
     """Validate a (rows, K) f32 right-hand side on X's device; returns K."""
     if V.dtype != torch.float32:
