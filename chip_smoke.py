@@ -7,21 +7,24 @@ Phases (each prints its own lines; any failure ends the run non-zero):
 
   0. device   — a CUDA card must be present; prints nvidia-smi's name and
                 power limit and torch's device name.
-  1. build    — builds the nine kernel libraries from vampomi_tpu_torch/csrc,
+  1. build    — builds the ten kernel libraries from vampomi_tpu_torch/csrc,
                 one nvcc each, all started together.
   2. kernel   — each kernel against its plain PyTorch version and against f64
                 at its main-path shape (int8 X of the north star,
                 M = 1,048,576 x N = 10,240, and packed int4 X of
                 M = 2,097,152 x N = 10,240, both made on the card from a
-                seed) and at a ragged shape; bitwise repeatability; kernel
-                and plain timed with CUDA events in turns.
+                seed) and at ragged shapes (the two X Ys kernels at K = 1,
+                2, 3, 8 with M not a multiple of the rows per warp and M
+                below it); bitwise repeatability; kernel and plain timed
+                with CUDA events in turns, beside the kernel's bound.
   2b. probe   — the five probe kernels (read floor, tensor cores) against
                 their plain versions and f64 at full and ragged shapes on the
                 same X, then the two measurement tools' entry functions at
                 full shape (vampomi_tpu_torch/tools: matvec_floor_probe on
                 the int8 X, r4_probe on it and the first 1,048,576 rows of
                 the packed X), with launch counts; prints each tool's JSON
-                summary line.
+                summary line; the read-floor sums beside torch's own int32
+                sums (their library yardstick), in turns.
   3. parity   — infere_linear on the card against the same port on the CPU
                 at M = 16,384 x N = 2,048 (data_sim), int8 and int4: eigen
                 for 4 iterations, cg for 3.
@@ -30,15 +33,20 @@ Phases (each prints its own lines; any failure ends the run non-zero):
                 be finite, and the x1 correlation must rise.
   5. main     — the int8 main path at the north-star shape: a planted design
                 (1,024 causal markers, h2 = 0.8, prior fixed at the truth),
-                5 eigen iterations and 2 CG iterations; prints setup and
-                per-iteration seconds and peak memory, and checks from the
-                launch counts that every iteration went through the kernels.
+                5 eigen iterations and 2 CG iterations (CG's A^T pass through
+                atx_batch_int8), each solver with the per-iteration outputs
+                on and then off; prints setup and per-iteration seconds,
+                peak memory and kernel launches, and checks from the launch
+                counts that every iteration went through the kernels.
   6. int4     — the same at M = 2,097,152 x N = 10,240 on a planted packed
                 design (2,048 causal markers: the same density), after the
                 int8 X is freed.
 
-The line before the last is the kernel record {"kernels": [...]}: ten
-kernels standing for the twelve TPU kernels of the repo; the last
+The line before the last is the kernel record {"kernels": [...]}: eleven
+kernels standing for the twelve TPU kernels of the repo and the int8 einsum
+of CG's A^T pass, each with its bound (the larger of its bytes over 3.35
+TB/s and its FLOPs over the peak rate of their type, from this run's
+shapes) and its one-call PyTorch yardstick where one exists; the last
 line is {"ok": true, "device": {...}}.  The engine's own per-iteration
 narration goes to log files in --log-dir when given; outputs and (by
 default) logs go to a temporary directory that is removed at the end.
@@ -69,7 +77,9 @@ from vampomi_tpu_torch.engine.linear import infere_linear  # noqa: E402
 from vampomi_tpu_torch.io.bin_io import read_bin_slab  # noqa: E402
 from vampomi_tpu_torch.io.csv_writer import read_positional_csv  # noqa: E402
 from vampomi_tpu_torch.ops import _build  # noqa: E402
-from vampomi_tpu_torch.ops.atx_int8 import atx_int8, atx_int8_plain  # noqa: E402
+from vampomi_tpu_torch.ops.atx_int8 import (  # noqa: E402
+    atx_batch_int8, atx_batch_int8_plain, atx_int8, atx_int8_plain,
+)
 from vampomi_tpu_torch.ops.broadcast import (  # noqa: E402
     ax_batch_int8, ax_batch_int8_plain, ax_batch_packed4, ax_batch_packed4_plain,
 )
@@ -88,7 +98,8 @@ from vampomi_tpu_torch.ops.stream import (  # noqa: E402
 )
 from vampomi_tpu_torch.sim.data_sim import simulate_iid, write_fixture  # noqa: E402
 from vampomi_tpu_torch.tools import (  # noqa: E402
-    KERNEL_CALLS, KERNEL_TOL, card_ms, exact_and_scale, in_turns, random_codes, rel_err,
+    BF16_FLOPS, F32_FLOPS, KERNEL_CALLS, KERNEL_TOL, bound_ms, card_ms, exact_and_scale, in_turns,
+    matvec_bound, random_codes, rel_err,
 )
 from vampomi_tpu_torch.tools import matvec_floor_probe, r4_probe  # noqa: E402
 
@@ -121,11 +132,16 @@ class Kernel(NamedTuple):
     replaces: str           # the TPU kernels it stands for, "file:line; ..."
     kind: str               # "vec": X y; "rows": X Ys; "cols": X^T W; "stream"
     bf16: bool = False      # the vector is rounded to bf16 (tensor cores)
+    library: Callable | None = None  # one PyTorch call computing the same, if any
 
 
 CSRC = "vampomi_tpu_torch/csrc/"
 # every kernel of the port, each with the TPU kernels it replaces (#9 and #11
-# are the r4 probe's prototypes of #1 and #2: the same functions)
+# are the r4 probe's prototypes of #1 and #2: the same functions;
+# atx_batch_int8 replaces an XLA einsum).  Only the read-floor sums have a
+# one-call PyTorch yardstick: no single call multiplies int8 or packed
+# nibbles by f32 (torch._int_mm needs int8 on both sides; X.float() @ y is
+# two calls and a 40 GiB copy)
 KERNELS = {
     "atx_int8": Kernel(atx_int8, atx_int8_plain, CSRC + "atx_int8.cu",
                        "vampomi_tpu/ops/pallas_matvec.py:55; tools/r4_probe.py:52", "vec"),
@@ -139,10 +155,15 @@ KERNELS = {
     "atx_batch_packed4": Kernel(atx_batch_packed4, atx_batch_packed4_plain,
                                 CSRC + "atx_batch_packed4.cu",
                                 "vampomi_tpu/ops/pallas_matvec.py:183", "rows"),
+    "atx_batch_int8": Kernel(atx_batch_int8, atx_batch_int8_plain, CSRC + "atx_batch_int8.cu",
+                             "vampomi_tpu/ops/operator.py:334 (XLA einsum, no Pallas kernel)",
+                             "rows"),
     "stream_sum": Kernel(stream_sum, stream_sum_plain, CSRC + "stream.cu",
-                         "tools/matvec_floor_probe.py:83", "stream"),
+                         "tools/matvec_floor_probe.py:83", "stream",
+                         library=lambda X: torch.sum(X, dtype=torch.int32)),
     "stream_rowsum": Kernel(stream_rowsum, stream_rowsum_plain, CSRC + "stream.cu",
-                            "tools/matvec_floor_probe.py:112", "stream"),
+                            "tools/matvec_floor_probe.py:112", "stream",
+                            library=lambda X: X.sum(dim=1, dtype=torch.int32)),
     "atx_mxu": Kernel(atx_mxu, atx_mxu_plain, CSRC + "atx_mxu.cu",
                       "tools/matvec_floor_probe.py:135", "vec", bf16=True),
     "ax_mxu": Kernel(ax_mxu, ax_mxu_plain, CSRC + "ax_mxu.cu",
@@ -181,6 +202,20 @@ def launches() -> dict:
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.fn.launches = 0
+
+
+def bound(name: str, X: torch.Tensor, k: int) -> tuple[float, str]:
+    """The least milliseconds the card could take for one call of kernel
+    `name` on X with k right-hand sides, and what sets it (tools.bound_ms):
+    the matvecs at 2 operations per code and right-hand side, at the f32
+    rate of the CUDA cores or the bf16 rate of the tensor cores; the
+    read-floor sums at one add per byte, counted at the f32 rate, with X and
+    their int32 sums crossing HBM once."""
+    kn = KERNELS[name]
+    if kn.kind != "stream":
+        return matvec_bound(X, k, kn.kind == "cols", BF16_FLOPS if kn.bf16 else F32_FLOPS)
+    out = 4 * X.shape[0] if name == "stream_rowsum" else 4
+    return bound_ms(X.numel() + out, X.numel())
 
 
 # ---------------------------------------------------------------------------
@@ -239,11 +274,14 @@ def check_kernel(name: str, X: torch.Tensor, V: torch.Tensor, timed: bool) -> di
     if timed:
         ms, plain_ms, t_kern, t_plain = in_turns(lambda: run(kern), lambda: run(plain))
         gb = X.numel() / 1e9
-        log(f"[kernel] {name} {shape}: {ms:.3f} ms ({gb / ms * 1e3:.1f} GB/s of X); plain "
+        least_ms, least_by = bound(name, X, V.shape[1])
+        log(f"[kernel] {name} {shape}: {ms:.3f} ms ({gb / ms * 1e3:.1f} GB/s of X; bound "
+            f"{least_ms:.3f} ms by {least_by}, {100 * least_ms / ms:.1f}% of it); plain "
             f"{plain_ms:.3f} ms ({gb / plain_ms * 1e3:.1f} GB/s); medians of 7 samples of "
             f"{KERNEL_CALLS} calls (kernel) and 5 calls (plain) after warm-up, runs {t_kern} / "
             f"{t_plain}")
-        rec.update(ms=ms, plain_ms=plain_ms)
+        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=least_ms, bound_by=least_by,
+                   library_ms=None)
     return rec
 
 
@@ -265,6 +303,7 @@ def phase_kernel(dev: str) -> tuple[torch.Tensor, torch.Tensor, dict]:
         ("atx_packed4", X4, NS_N, [1]),
         ("ax_batch_packed4", X4, I4_M, [1, 2]),
         ("atx_batch_packed4", X4, NS_N, [2]),
+        ("atx_batch_int8", X8, NS_N, [2]),
     ]
     recs = {}
     for name, X, rows, ks in plan:
@@ -283,6 +322,14 @@ def phase_kernel(dev: str) -> tuple[torch.Tensor, torch.Tensor, dict]:
         Xr = random_codes(m, n if dtype == torch.int8 else n // 2, dtype, SEED + 3, dev)
         for k in ((1,) if name.startswith("atx_") and "batch" not in name else (1, 2, 3)):
             check_kernel(name, Xr, rhs(m if name.startswith("ax_batch") else n, k), timed=False)
+    # the X Ys kernels (R rows per warp): M not a multiple of R, and M below
+    # R, on the byte path and on the 16-byte path; at N = 8,192, K = 8 reads
+    # Ys through the read-only cache (256 KB, above the shared-memory cap)
+    for name, dtype in (("atx_batch_int8", torch.int8), ("atx_batch_packed4", PACKED4_DTYPE)):
+        for m, n in ((1003, 1002), (3, 1002), (1003, 8192), (3, 8192)):
+            Xr = random_codes(m, n if dtype == torch.int8 else n // 2, dtype, SEED + 6, dev)
+            for k in (1, 2, 3, 8):
+                check_kernel(name, Xr, rhs(n, k), timed=False)
     return X8, X4, recs
 
 
@@ -350,8 +397,24 @@ def phase_probe(dev: str, X8: torch.Tensor, X4: torch.Tensor) -> tuple[dict, dic
         f"{floor['read_floor_gbps']:.1f} GB/s of X; kernel launches "
         f"{ {n: c for n, c in counts.items() if c} }")
     timed = {**floor["results"], **r4["results"]}
+    shapes = {"stream_sum": (X8, 1), "stream_rowsum": (X8, 1), "atx_mxu": (X8, 1),
+              "ax_mxu": (X8, 1), "ax2_packed4_mxu": (X4r, 2)}  # as the tools time them
     for name in PROBE_KERNELS:
-        recs[name].update(ms=timed[name]["ms"], plain_ms=timed[name]["plain_ms"])
+        X, k = shapes[name]
+        least_ms, least_by = bound(name, X, k)
+        recs[name].update(ms=timed[name]["ms"], plain_ms=timed[name]["plain_ms"],
+                          bound_ms=least_ms, bound_by=least_by, library_ms=None)
+    # the read-floor sums against torch's own int32 sums of the same X, in
+    # turns (library, kernel, kernel, library), both 5 calls a sample
+    for name in ("stream_sum", "stream_rowsum"):
+        kn = KERNELS[name]
+        ms, lib_ms, _, _ = in_turns(lambda: kn.fn(X8), lambda: kn.library(X8),
+                                    plain_calls=KERNEL_CALLS)
+        check(torch.equal(kn.library(X8).flatten(), kn.plain(X8).flatten()),
+              f"{name}: library call disagrees")
+        recs[name]["library_ms"] = lib_ms
+        log(f"[probe] {name}: {ms:.3f} ms beside torch's one-call int32 sum {lib_ms:.3f} ms "
+            f"(in turns; the tool's time {recs[name]['ms']:.3f} ms is the record)")
     return recs, {name: counts[name] for name in PROBE_KERNELS}
 
 
@@ -453,7 +516,7 @@ def planted_problem(dm, causal: int, h2: float = 0.8):
 # A^T y kernels once more, for the constant A^T y of the setup)
 MAIN_KERNELS = {
     ("int8", "eigen"): ("atx_int8", "ax_batch_int8"),
-    ("int8", "cg"): ("atx_int8", "ax_batch_int8"),
+    ("int8", "cg"): ("atx_int8", "ax_batch_int8", "atx_batch_int8"),
     ("int4", "eigen"): ("atx_packed4", "ax_batch_packed4"),
     ("int4", "cg"): ("atx_packed4", "ax_batch_packed4", "atx_batch_packed4"),
 }
@@ -462,9 +525,11 @@ MAIN_KERNELS = {
 def phase_main(dtype: str, X: torch.Tensor, log_dir: str, out_dir: str, x1_min: float,
                iters: int = 5, cg_iters: int = 2, cg_max_iter: int = 50) -> dict:
     """The main path on a planted design over the codes X: 5 eigen and 2 CG
-    iterations, prior fixed at the truth, one causal marker per 1,024.
-    Returns the kernel launches of the whole path (counts set to 0 just
-    before it and read just after)."""
+    iterations, prior fixed at the truth, one causal marker per 1,024; each
+    solver once with the per-iteration outputs (CSV rows, .bin dumps) and
+    once without, for the wall without the dumps and the kernel launches of
+    a run.  Returns the kernel launches of the whole path (counts set to 0
+    just before it and read just after)."""
     dev = X.device
     t0 = time.perf_counter()
     dm = design_from_packed(X) if dtype == "int4" else design_from_codes(X)
@@ -519,6 +584,18 @@ def phase_main(dtype: str, X: torch.Tensor, log_dir: str, out_dir: str, x1_min: 
             check(count.get(name, 0) >= need,
                   f"{dtype} {solver}: {name} launched {count.get(name, 0)} times in {k} "
                   f"iterations, want >= {need}")
+        before = launches()
+        with engine_log(log_dir, f"main_{dtype}_{solver}_off"):
+            off = infere_linear(dm, y, cfg, true_signal=beta, write_outputs=False)
+        torch.cuda.synchronize()
+        count = {name: c - before[name] for name, c in launches().items() if c > before[name]}
+        mo = np.asarray(off.metrics_history)
+        check(mo.shape == mh.shape and np.all(np.isfinite(mo)),
+              f"{dtype} {solver}, outputs off: bad shapes or values")
+        log(f"[main {dtype}] {solver}, outputs off: per-iteration seconds "
+            f"{[round(s, 4) for s in off.iter_seconds]}; kernel launches {count} in {k} "
+            f"iterations and the setup's A^T y; max abs diff of the metrics against the run "
+            f"with outputs {float(np.abs(mo - mh).max()):.3g}")
     return launches()
 
 
@@ -551,8 +628,9 @@ def main(argv=None) -> int:
             check(c > 0, f"{name} was never launched on its own path")
         log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     kernels = [dict(name=name, route="cuda", source=k.source, replaces=k.replaces,
-                    launches=counts[name], max_abs_err=recs[name]["max_abs_err"],
-                    ms=recs[name]["ms"], plain_ms=recs[name]["plain_ms"])
+                    launches=counts[name],
+                    **{key: recs[name][key] for key in ("max_abs_err", "ms", "plain_ms",
+                                                        "bound_ms", "bound_by", "library_ms")})
                for name, k in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -23,7 +23,9 @@ from vampomi_tpu_torch.config import RunConfig
 from vampomi_tpu_torch.engine import linear as tlin
 from vampomi_tpu_torch.io import bin_io
 from vampomi_tpu_torch.ops import operator as top
-from vampomi_tpu_torch.ops.atx_int8 import atx_int8, atx_int8_plain
+from vampomi_tpu_torch.ops.atx_int8 import (
+    atx_batch_int8, atx_batch_int8_plain, atx_int8, atx_int8_plain,
+)
 from vampomi_tpu_torch.ops.broadcast import (
     ax_batch_int8, ax_batch_int8_plain, ax_batch_packed4, ax_batch_packed4_plain,
 )
@@ -111,6 +113,51 @@ def test_packed_kernels_match_plain_on_card(cuda_device, shape, k):
         (before[0] + 2, before[1] + 2, before[2] + 2)
 
 
+# the two X Ys kernels of csrc/xy.cuh (R = 4 rows per warp at K <= 4)
+XY = {"int8": (atx_batch_int8, atx_batch_int8_plain),
+      "packed4": (atx_batch_packed4, atx_batch_packed4_plain)}
+
+
+def _xy_case(dev, kind, m, nb, k, seed, offset=0):
+    """X (m, nb) of int8 codes or packed bytes starting `offset` bytes into
+    its storage (1: not 16-byte aligned, so the byte path), its f64 codes
+    (m, N) and f32 Ys (N, k)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    lo, hi, dt = (-127, 128, torch.int8) if kind == "int8" else (0, 256, torch.uint8)
+    X = torch.randint(lo, hi, (m * nb + offset,), dtype=dt, device=dev,
+                      generator=g)[offset:].view(m, nb)
+    C = X.double() if kind == "int8" else unpack_rows(X, torch.float64)
+    return X, C, torch.randn(C.shape[1], k, device=dev, generator=g)
+
+
+@pytest.mark.parametrize("kind", list(XY))
+@pytest.mark.parametrize("shape", [(1003, 1024), (3, 4096), (4097, 10240), (77, 16), (1000, 1001)])
+@pytest.mark.parametrize("k", range(1, 9))
+def test_xy_kernels_match_plain_on_card(cuda_device, kind, shape, k):
+    """M not a multiple of R (1003, 4097, 77) and below it (3), the 16-byte
+    and the byte path, Ys in shared memory or (large N*K) through the
+    read-only cache."""
+    kern, plain = XY[kind]
+    X, C, Ys = _xy_case(cuda_device, kind, *shape, k, seed=shape[0] + k)
+    before = kern.launches
+    _check(kern, plain, X, Ys, C)
+    assert kern.launches == before + 2
+
+
+@pytest.mark.parametrize("kind", list(XY))
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("k", [2, 3])
+def test_xy_kernels_ldg_path_and_unaligned_x_on_card(cuda_device, kind, offset, k):
+    """N = 20,000 samples: Yt of 160-240 KB, above the shared-memory cap,
+    so Ys is read through the read-only cache; offset 1 puts X one byte off
+    16-byte alignment."""
+    kern, plain = XY[kind]
+    nb = 20_000 if kind == "int8" else 10_000
+    X, C, Ys = _xy_case(cuda_device, kind, 515, nb, k, seed=k + 10 * offset, offset=offset)
+    _check(kern, plain, X, Ys, C)
+
+
 @pytest.mark.parametrize("dtype", [torch.int8, top.PACKED4_DTYPE])
 def test_quantized_operator_on_card_matches_cpu(cuda_device, dtype):
     """ax, atx, ax_batch, atx_batch of a quantized design: the card (through
@@ -124,7 +171,7 @@ def test_quantized_operator_on_card_matches_cpu(cuda_device, dtype):
     y = rng.normal(size=512).astype(np.float32)
     xs = rng.normal(size=(3000, 2)).astype(np.float32)
     ys = rng.normal(size=(512, 2)).astype(np.float32)
-    kernels = ([atx_int8, ax_batch_int8] if dtype == torch.int8
+    kernels = ([atx_int8, ax_batch_int8, atx_batch_int8] if dtype == torch.int8
                else [atx_packed4, ax_batch_packed4, atx_batch_packed4])
     before = [k.launches for k in kernels]
     for op, v in ((top.ax, x), (top.atx, y), (top.ax_batch, xs), (top.atx_batch, ys)):

@@ -150,8 +150,7 @@ def test_int8_products_chunk_boundary(raw, monkeypatch):
     x = torch.as_tensor(rng.normal(size=(tdm.m_pad, 2)).astype(np.float32))
     y = torch.as_tensor(rng.normal(size=(300, 2)).astype(np.float32))
     whole = (top.ax_batch(tdm, x), top.atx_batch(tdm, y), top.atx(tdm, y[:, 0]))
-    monkeypatch.setattr(top, "PLAIN_CHUNK_BYTES", 4 * 300 * 37)
-    from vampomi_tpu_torch.ops import atx_int8 as mod
+    from vampomi_tpu_torch.ops import atx_int8 as mod  # owns every plain row-chunk loop
     monkeypatch.setattr(mod, "PLAIN_CHUNK_BYTES", 4 * 300 * 37)
     split = (top.ax_batch(tdm, x), top.atx_batch(tdm, y), top.atx(tdm, y[:, 0]))
     for a, b in zip(whole, split):

@@ -28,8 +28,8 @@ import ctypes
 import torch
 
 from . import _build
-from .atx_int8 import chunk_rows
-from .packed4 import check_int8, check_packed, check_rhs, unpack_rows
+from .atx_int8 import check_int8, check_rhs, chunk_rows
+from .packed4 import check_packed, unpack_rows
 
 
 def _xtw_plain(X: torch.Tensor, W: torch.Tensor, n: int, rows_of) -> torch.Tensor:

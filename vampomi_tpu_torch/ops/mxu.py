@@ -32,9 +32,9 @@ import ctypes
 import torch
 
 from . import _build
-from .atx_int8 import atx_int8_plain
+from .atx_int8 import atx_int8_plain, check_int8, check_rhs
 from .broadcast import ax_batch_int8_plain, ax_batch_packed4_plain, launch_xtw
-from .packed4 import check_int8, check_packed, check_rhs
+from .packed4 import check_packed
 
 # the columns one step of atx_mxu's products covers (kCols in atx_mxu.cu):
 # its bf16 copy of y is zero-padded to a multiple of this

@@ -16,10 +16,9 @@ host and cast once.
 Quantized X runs hand-written CUDA kernels on a card and their plain
 versions on the CPU:
 
-  * int8 (M, N) codes: `atx` through `ops/atx_int8.py`, `ax` / `ax_batch`
-    through `ops/broadcast.py ax_batch_int8`; `atx_batch` is plain PyTorch
-    (one chunk of marker rows upcast to f32 and multiplied in f32, TF32 off,
-    so no f32 copy of the whole of X exists);
+  * int8 (M, N) codes: `atx` and `atx_batch` through `ops/atx_int8.py`
+    (`atx_int8`, `atx_batch_int8`), `ax` / `ax_batch` through
+    `ops/broadcast.py ax_batch_int8`;
   * packed int4, (M, N/2) uint8 bytes of two biased nibbles (PACKED4_DTYPE,
     vampomi_tpu/ops/operator.py:41-47): `atx` and `atx_batch` through
     `ops/packed4.py`, `ax` / `ax_batch` through `ops/broadcast.py
@@ -39,7 +38,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .atx_int8 import PLAIN_CHUNK_BYTES, atx_int8, chunk_rows
+from .atx_int8 import PLAIN_CHUNK_BYTES, atx_batch_int8, atx_int8
 from .broadcast import ax_batch_int8, ax_batch_packed4
 from .packed4 import atx_batch_packed4, atx_packed4, unpack_rows
 
@@ -104,18 +103,11 @@ def _xt_w(dm: DesignMatrix, w: torch.Tensor) -> torch.Tensor:
 
 def _x_y(dm: DesignMatrix, ys: torch.Tensor) -> torch.Tensor:
     """X ys for ys (N, K) in the work dtype → (M, K)."""
+    if dm.X.dtype == torch.int8:
+        return atx_batch_int8(dm.X, ys.contiguous())
     if dm.X.dtype == PACKED4_DTYPE:
         return atx_batch_packed4(dm.X, ys.contiguous())
-    if dm.X.dtype != torch.int8:
-        return dm.X @ ys
-    # int8: plain, one chunk of marker rows upcast to f32 at a time
-    m = dm.m_pad
-    out = torch.empty((m, ys.shape[1]), dtype=torch.float32, device=dm.device)
-    rows = chunk_rows(m, int(dm.n), PLAIN_CHUNK_BYTES)
-    for lo in range(0, m, rows):
-        hi = min(m, lo + rows)
-        torch.matmul(dm.X[lo:hi].to(torch.float32), ys, out=out[lo:hi])
-    return out
+    return dm.X @ ys
 
 
 def ax(dm: DesignMatrix, x: torch.Tensor) -> torch.Tensor:

@@ -7,13 +7,14 @@ vampomi_tpu/ops/operator.py:41-47).
 
 `atx_packed4` (v = X y) and `atx_batch_packed4` (Y = X Ys, K <= 8) wrap the
 hand-written CUDA kernels `csrc/atx_packed4.cu` and
-`csrc/atx_batch_packed4.cu` (one kernel template, `csrc/xy_packed4.cuh`),
-which replace the TPU Pallas kernels `atx_packed4_raw` and
+`csrc/atx_batch_packed4.cu` (the P = 2 instances of the row-blocked reduce
+template `csrc/xy.cuh`, whose int8 instance is `atx_batch_int8`), which
+replace the TPU Pallas kernels `atx_packed4_raw` and
 `atx_batch_packed4_raw` (vampomi_tpu/ops/pallas_matvec.py:89-124,
 183-238).  They compute what those compute in interpret mode: each code
 upcast exactly to f32, multiplied by the f32 entry and summed in f32 (the
 TPU's batch kernel rounds Ys to bf16; the port does not).  Bound by the bytes
-of X; see the note at the top of `xy_packed4.cuh`.
+of X; see the note at the top of `xy.cuh`.
 
 On a CUDA tensor a wrapper launches its kernel on the current stream (and
 raises if it cannot); on a CPU tensor it runs the plain PyTorch version
@@ -27,9 +28,7 @@ import ctypes
 import torch
 
 from . import _build
-from .atx_int8 import chunk_rows
-
-K_MAX = 8  # right-hand sides a kernel takes (the JAX package's gate)
+from .atx_int8 import check_rhs, chunk_rows
 
 
 def unpack_nibbles(Xp: torch.Tensor, dtype: torch.dtype = torch.float32):
@@ -72,33 +71,6 @@ def check_packed(Xp: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: X must be contiguous")
 
 
-def check_int8(X: torch.Tensor, what: str) -> None:
-    if X.dtype != torch.int8:
-        raise TypeError(f"{what}: X must be int8, got {X.dtype}")
-    if X.dim() != 2 or X.shape[0] < 1 or X.shape[1] < 1 or not X.is_contiguous():
-        raise ValueError(f"{what}: need a non-empty contiguous (M, N) X, got {tuple(X.shape)}")
-    if X.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what}: unsupported device {X.device}")
-
-
-def check_rhs(X: torch.Tensor, V: torch.Tensor, rows: int, what: str) -> int:
-    """Validate a (rows, K) f32 right-hand side on X's device; returns K."""
-    if V.dtype != torch.float32:
-        raise TypeError(f"{what}: right-hand sides must be float32, got {V.dtype}")
-    if V.dim() != 2 or V.shape[0] != rows:
-        raise ValueError(f"{what}: need ({rows}, K) right-hand sides, got {tuple(V.shape)}")
-    if not 1 <= V.shape[1] <= K_MAX:
-        raise ValueError(f"{what}: K = {V.shape[1]} right-hand sides, the kernel takes "
-                         f"1 to {K_MAX}")
-    if not V.is_contiguous():
-        raise ValueError(f"{what}: right-hand sides must be contiguous")
-    if V.device != X.device:
-        raise ValueError(f"{what}: X on {X.device} but right-hand sides on {V.device}")
-    if X.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what}: unsupported device {X.device}")
-    return V.shape[1]
-
-
 def atx_batch_packed4(Xp: torch.Tensor, Ys: torch.Tensor) -> torch.Tensor:
     """Y = codes(Xp) @ Ys for (M, N/2) packed X and (N, K) f32 Ys, K <= 8,
     in f32 → (M, K)."""
@@ -131,7 +103,8 @@ def atx_packed4(Xp: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return atx_packed4_plain(Xp, y)
     out = torch.empty(m, dtype=torch.float32, device=Xp.device)
     fn = _build.function("atx_packed4", "atx_packed4_launch",
-                         [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+                         [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
+                         + [ctypes.c_void_p])
     with torch.cuda.device(Xp.device):
         err = fn(Xp.data_ptr(), y.data_ptr(), out.data_ptr(), m, n2,
                  torch.cuda.current_stream().cuda_stream)

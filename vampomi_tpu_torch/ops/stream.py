@@ -26,8 +26,7 @@ import ctypes
 import torch
 
 from . import _build
-from .atx_int8 import chunk_rows
-from .packed4 import check_int8
+from .atx_int8 import check_int8, chunk_rows
 
 
 def _wrap_int32(s: torch.Tensor) -> torch.Tensor:

@@ -38,6 +38,11 @@ from ..ops.packed4 import unpack_rows
 # sum |x||v| (PERF.md).
 KERNEL_TOL = 1e-5
 
+# published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM bytes
+# per second, and FLOPs per second of f32 on the CUDA cores and of bf16 on
+# the tensor cores
+HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+
 
 def tool_args(description: str, argv, out: bool = False) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=description)
@@ -105,6 +110,27 @@ def exact_and_scale(X: torch.Tensor, V: torch.Tensor, broadcast: bool):
     return ex, sc
 
 
+def bound_ms(nbytes: int, ops: int, ops_rate: float = F32_FLOPS) -> tuple[float, str]:
+    """The least milliseconds the card could take for work that moves
+    `nbytes` through HBM (each input read once, each output written once)
+    and does `ops` operations at `ops_rate`: the larger of the two times,
+    and which sets it ("bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BPS, ops / ops_rate
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def matvec_bound(X: torch.Tensor, k: int, broadcast: bool,
+                 ops_rate: float = F32_FLOPS) -> tuple[float, str]:
+    """bound_ms of one pass over the codes of X with k right-hand sides:
+    X Ys (Ys (N, k) in, (M, k) out) or, broadcast, X^T W (W (M, k) in,
+    (N, k) out), each byte once, at 2 operations per code and column."""
+    m = X.shape[0]
+    codes = X.numel() * (2 if X.dtype == PACKED4_DTYPE else 1)
+    n = codes // m
+    vectors = 4 * k * (m + n)
+    return bound_ms(X.numel() + vectors, 2 * codes * k, ops_rate)
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor, scale: torch.Tensor) -> float:
     """max |got - want| relative to `scale` (sum |x||v|), elementwise."""
     return float(((got.double() - want.double()).abs() / scale.clamp_min(1e-30)).max())
@@ -135,12 +161,12 @@ def card_ms(fn, reps: int = 7, warmup: int = 2, calls: int = 1) -> float:
     return float(np.median(times))
 
 
-def in_turns(kern, plain) -> tuple[float, float, list, list]:
+def in_turns(kern, plain, plain_calls: int = 1) -> tuple[float, float, list, list]:
     """Kernel and plain version timed in turns (plain, kernel, kernel,
     plain): the medians over the kernel's two runs of 7 samples of
-    KERNEL_CALLS calls and the plain version's two runs of 5 single calls,
-    and the runs."""
-    t_plain = [card_ms(plain, reps=5, warmup=1)]
+    KERNEL_CALLS calls and the plain version's two runs of 5 samples of
+    `plain_calls` calls, and the runs."""
+    t_plain = [card_ms(plain, reps=5, warmup=1, calls=plain_calls)]
     t_kern = [card_ms(kern, calls=KERNEL_CALLS), card_ms(kern, calls=KERNEL_CALLS)]
-    t_plain.append(card_ms(plain, reps=5, warmup=1))
+    t_plain.append(card_ms(plain, reps=5, warmup=1, calls=plain_calls))
     return float(np.median(t_kern)), float(np.median(t_plain)), t_kern, t_plain
