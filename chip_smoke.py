@@ -7,7 +7,7 @@ Phases (each prints its own lines; any failure ends the run non-zero):
 
   0. device   — a CUDA card must be present; prints nvidia-smi's name and
                 power limit and torch's device name.
-  1. build    — builds the ten kernel libraries from vampomi_tpu_torch/csrc,
+  1. build    — builds the eleven kernel libraries from vampomi_tpu_torch/csrc,
                 one nvcc each, all started together.
   2. kernel   — each kernel against its plain PyTorch version and against f64
                 at its main-path shape (int8 X of the north star,
@@ -27,35 +27,46 @@ Phases (each prints its own lines; any failure ends the run non-zero):
                 sums (their library yardstick), in turns.
   3. parity   — infere_linear on the card against the same port on the CPU
                 at M = 16,384 x N = 2,048 (data_sim), int8 and int4: eigen
-                for 4 iterations, cg for 3.
+                and spectral for 4 iterations, cg for 3.
   4. cli      — the CLI through files (N = 2,000 x M = 8,000), int8 and
-                int4, with eigen and with cg; every output file must exist,
-                be finite, and the x1 correlation must rise.
+                int4, with eigen, spectral and cg (every output file must
+                exist, be finite, and the x1 correlation must rise); then
+                test, association_test (se, loo, loo_std) and predict on the
+                eigen run's dumps.
   5. main     — the int8 main path at the north-star shape: a planted design
                 (1,024 causal markers, h2 = 0.8, prior fixed at the truth),
-                5 eigen iterations and 2 CG iterations (CG's A^T pass through
-                atx_batch_int8), each solver with the per-iteration outputs
-                on and then off; prints setup and per-iteration seconds,
-                peak memory and kernel launches, and checks from the launch
-                counts that every iteration went through the kernels.
-  6. int4     — the same at M = 2,097,152 x N = 10,240 on a planted packed
-                design (2,048 causal markers: the same density), after the
-                int8 X is freed.
+                5 eigen iterations, 4 with --lmmse-solver auto (which must
+                resolve to spectral there) and 2 CG iterations (CG's A^T
+                pass through atx_batch_int8), each with the per-iteration
+                outputs on and then off; prints setup and per-iteration
+                seconds, peak memory and kernel launches, and checks from
+                the launch counts that every iteration went through the
+                kernels; then the spectral dense step timed alone by route.
+  5b. modes   — the run modes at full width on that design and its dumps:
+                row_moments_int8 against its plain version (bitwise, timed);
+                SE, LOO and loo_std p-values, the LOO statistics of 4,096
+                rows against f64 on the host; test mode over the 5 eigen
+                estimates in one pass; predict; with launch counts.
+  6. int4     — phases 5 (eigen and CG) and 5b at M = 2,097,152 x
+                N = 10,240 on a planted packed design (2,048 causal markers:
+                the same density), after the int8 X is freed.
 
-The line before the last is the kernel record {"kernels": [...]}: eleven
-kernels standing for the twelve TPU kernels of the repo and the int8 einsum
-of CG's A^T pass, each with its bound (the larger of its bytes over 3.35
-TB/s and its FLOPs over the peak rate of their type, from this run's
-shapes) and its one-call PyTorch yardstick where one exists; the last
-line is {"ok": true, "device": {...}}.  The engine's own per-iteration
-narration goes to log files in --log-dir when given; outputs and (by
-default) logs go to a temporary directory that is removed at the end.
+The line before the last is the kernel record {"kernels": [...]}: thirteen
+kernels standing for the twelve TPU kernels of the repo, the int8 einsum
+of CG's A^T pass and the LOO pass's row reductions, each with its bound
+(the larger of its bytes over 3.35 TB/s and its operations over the peak
+rate of their type, from this run's shapes) and its one-call PyTorch
+yardstick where one exists; the last line is {"ok": true, "device":
+{...}}.  The engine's own per-iteration narration goes to log files in
+--log-dir when given; outputs and (by default) logs go to a temporary
+directory that is removed at the end.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -73,15 +84,21 @@ import torch  # noqa: E402
 
 from vampomi_tpu_torch import cli  # noqa: E402
 from vampomi_tpu_torch.config import RunConfig, resolve_device  # noqa: E402
+from vampomi_tpu_torch.dataset import Dataset  # noqa: E402
 from vampomi_tpu_torch.engine.linear import infere_linear  # noqa: E402
 from vampomi_tpu_torch.io.bin_io import read_bin_slab  # noqa: E402
 from vampomi_tpu_torch.io.csv_writer import read_positional_csv  # noqa: E402
+from vampomi_tpu_torch.io.phen import Phenotype  # noqa: E402
+from vampomi_tpu_torch.modes import association, predict, test_mode  # noqa: E402
 from vampomi_tpu_torch.ops import _build  # noqa: E402
 from vampomi_tpu_torch.ops.atx_int8 import (  # noqa: E402
     atx_batch_int8, atx_batch_int8_plain, atx_int8, atx_int8_plain,
 )
 from vampomi_tpu_torch.ops.broadcast import (  # noqa: E402
     ax_batch_int8, ax_batch_int8_plain, ax_batch_packed4, ax_batch_packed4_plain,
+)
+from vampomi_tpu_torch.ops.moments import (  # noqa: E402
+    row_moments_int8, row_moments_int8_plain, row_moments_packed4, row_moments_packed4_plain,
 )
 from vampomi_tpu_torch.ops.mxu import (  # noqa: E402
     atx_mxu, atx_mxu_plain, ax2_packed4_mxu, ax2_packed4_mxu_plain, ax_mxu, ax_mxu_plain,
@@ -93,13 +110,14 @@ from vampomi_tpu_torch.ops.operator import (  # noqa: E402
 from vampomi_tpu_torch.ops.packed4 import (  # noqa: E402
     atx_batch_packed4, atx_batch_packed4_plain, atx_packed4, atx_packed4_plain,
 )
+from vampomi_tpu_torch.ops.spectral import build_spectral, shift_inverse  # noqa: E402
 from vampomi_tpu_torch.ops.stream import (  # noqa: E402
     stream_rowsum, stream_rowsum_plain, stream_sum, stream_sum_plain,
 )
 from vampomi_tpu_torch.sim.data_sim import simulate_iid, write_fixture  # noqa: E402
 from vampomi_tpu_torch.tools import (  # noqa: E402
-    BF16_FLOPS, F32_FLOPS, KERNEL_CALLS, KERNEL_TOL, bound_ms, card_ms, exact_and_scale, in_turns,
-    matvec_bound, random_codes, rel_err,
+    BF16_FLOPS, F32_FLOPS, KERNEL_CALLS, KERNEL_TOL, bound_ms, card_ms, codes64, exact_and_scale,
+    in_turns, matvec_bound, random_codes, rel_err,
 )
 from vampomi_tpu_torch.tools import matvec_floor_probe, r4_probe  # noqa: E402
 
@@ -109,10 +127,12 @@ SEED = 20261016
 # kernel vs plain / f64: KERNEL_TOL of sum|x||v| (vampomi_tpu_torch/tools
 # gives its reason)
 # card against CPU, both f32 with the same probes: sums in another order.
-# eigen is exact per iteration (1e-4 leaves room for 4 iterations of
-# amplification); CG stops at rel-residual 1e-5 and may stop one step
-# apart, which the Hutchinson alpha2 and gamw carry (1e-3).
-PARITY_RTOL = {"eigen": 1e-4, "cg": 1e-3}
+# eigen and spectral are exact per iteration (1e-4 leaves room for 4
+# iterations of amplification; spectral's f32 Cholesky of S = gam2 I + gamw K
+# is well conditioned at M/N = 8, where K's eigenvalues span a factor ~4);
+# CG stops at rel-residual 1e-5 and may stop one step apart, which the
+# Hutchinson alpha2 and gamw carry (1e-3).
+PARITY_RTOL = {"eigen": 1e-4, "spectral": 1e-4, "cg": 1e-3}
 PARITY_ATOL = 1e-5  # metrics that start at 0 at the cold start
 PRIOR3 = dict(probs=[0.9, 0.07, 0.03], vars=[0.0, 1e-3, 1e-2], h2=0.8)
 # the least x1 correlation the int4 main path must reach: the JAX int4
@@ -130,7 +150,7 @@ class Kernel(NamedTuple):
     plain: Callable         # its plain PyTorch version
     source: str             # the CUDA source it is built from
     replaces: str           # the TPU kernels it stands for, "file:line; ..."
-    kind: str               # "vec": X y; "rows": X Ys; "cols": X^T W; "stream"
+    kind: str               # "vec": X y; "rows": X Ys; "cols": X^T W; "stream"; "moments"
     bf16: bool = False      # the vector is rounded to bf16 (tensor cores)
     library: Callable | None = None  # one PyTorch call computing the same, if any
 
@@ -170,6 +190,16 @@ KERNELS = {
                      "tools/matvec_floor_probe.py:168", "cols", bf16=True),
     "ax2_packed4_mxu": Kernel(ax2_packed4_mxu, ax2_packed4_mxu_plain, CSRC + "ax2_packed4_mxu.cu",
                               "tools/r4_probe.py:139", "cols", bf16=True),
+    # the LOO pass's per-row code sums: XLA reductions fused into the read of
+    # X in JAX, no Pallas kernel; no single PyTorch call gives both sums
+    "row_moments_int8": Kernel(row_moments_int8, row_moments_int8_plain,
+                               CSRC + "row_moments.cu",
+                               "vampomi_tpu/modes/association.py:98 (XLA reductions, no "
+                               "Pallas kernel)", "moments"),
+    "row_moments_packed4": Kernel(row_moments_packed4, row_moments_packed4_plain,
+                                  CSRC + "row_moments.cu",
+                                  "vampomi_tpu/modes/association.py:78 (XLA reductions, no "
+                                  "Pallas kernel)", "moments"),
 }
 LIBRARIES = list(dict.fromkeys(os.path.basename(k.source)[:-3] for k in KERNELS.values()))
 
@@ -210,8 +240,13 @@ def bound(name: str, X: torch.Tensor, k: int) -> tuple[float, str]:
     the matvecs at 2 operations per code and right-hand side, at the f32
     rate of the CUDA cores or the bf16 rate of the tensor cores; the
     read-floor sums at one add per byte, counted at the f32 rate, with X and
-    their int32 sums crossing HBM once."""
+    their int32 sums crossing HBM once; the row moments at three operations
+    per code (an add for the sum, a multiply and an add for the squares) at
+    the f32 rate, with X and two int32 a row crossing HBM once."""
     kn = KERNELS[name]
+    if kn.kind == "moments":
+        codes = X.numel() * (2 if X.dtype == PACKED4_DTYPE else 1)
+        return bound_ms(X.numel() + 8 * X.shape[0], 3 * codes)
     if kn.kind != "stream":
         return matvec_bound(X, k, kn.kind == "cols", BF16_FLOPS if kn.bf16 else F32_FLOPS)
     out = 4 * X.shape[0] if name == "stream_rowsum" else 4
@@ -446,8 +481,9 @@ def run_pair(devices, dtype: str, m: int, n: int, log_dir: str, out_dir: str,
 def phase_parity(dev: str, dtype: str, log_dir: str, out_dir: str, m: int = 16_384,
                  n: int = 2_048) -> None:
     t0 = time.perf_counter()
-    runs = run_pair([dev, "cpu"], dtype, m, n, log_dir, out_dir, {"eigen": 4, "cg": 3})
-    for solver in ("eigen", "cg"):
+    runs = run_pair([dev, "cpu"], dtype, m, n, log_dir, out_dir,
+                    {"eigen": 4, "spectral": 4, "cg": 3})
+    for solver in ("eigen", "spectral", "cg"):
         a, b = runs[(solver, dev)], runs[(solver, "cpu")]
         check(a.shape == b.shape and np.all(np.isfinite(a)), f"{solver}: bad shapes or values")
         err = np.abs(a - b) / np.maximum(np.abs(b), PARITY_ATOL / PARITY_RTOL[solver])
@@ -461,10 +497,11 @@ def phase_parity(dev: str, dtype: str, log_dir: str, out_dir: str, m: int = 16_3
 
 def phase_cli(dev: str, log_dir: str, n: int = 2_000, m: int = 8_000, iters: int = 8) -> None:
     with tempfile.TemporaryDirectory(prefix="vampomi_cli_") as d:
-        paths = write_fixture(simulate_iid(n=n, m=m, lam=0.1, h2=0.8, seed=SEED), d, "ex")
+        fx = simulate_iid(n=n, m=m, lam=0.1, h2=0.8, seed=SEED)
+        paths = write_fixture(fx, d, "ex")
         log(f"[cli] fixture N={n} M={m}: {os.path.getsize(paths['bin'])} bytes of .bin")
         for dtype in DTYPES:
-            for solver in ("eigen", "cg"):
+            for solver in ("eigen", "spectral", "cg"):
                 out = f"run_{dtype}_{solver}"
                 argv = ["--run-mode", "infere", "--model", "linear",
                         "--meth-file", paths["bin"], "--phen-file", paths["phen"],
@@ -495,6 +532,56 @@ def phase_cli(dev: str, log_dir: str, n: int = 2_000, m: int = 8_000, iters: int
                     f"{np.round(x1c, 4).tolist()}")
                 check(x1c[-1] > x1c[0] and x1c[-1] > 0.5,
                       f"cli {dtype} {solver}: x1 correlation did not rise")
+            cli_modes(dev, d, paths, fx.beta != 0, dtype, iters, log_dir)
+
+
+def cli_modes(dev: str, d: str, paths: dict, causal: np.ndarray, dtype: str, iters: int,
+              log_dir: str) -> None:
+    """test, association_test (se, loo, loo_std) and predict through files
+    on the eigen run's dumps: each output exists, is finite and has its
+    shape; the test R2 rises with the iterations, the p-values lie in
+    [0, 1] and the causal markers' median p-value is below the others'."""
+    m, n = causal.size, len(open(paths["phen"]).read().splitlines())
+    run = os.path.join(d, f"run_{dtype}_eigen")
+    common = ["--Mt", str(m), "--out-dir", d, "--compute-dtype", dtype, "--device", dev]
+    train = ["--meth-file", paths["bin"], "--phen-file", paths["phen"], "--N", str(n)]
+    test = ["--meth-file-test", paths["bin"], "--phen-file-test", paths["phen"],
+            "--N-test", str(n)]
+    gam1 = read_positional_csv(f"{run}_params.csv")[-1][2]
+    est = f"{run}_it_{iters}.bin"
+    pred_est = os.path.join(d, f"pred_{dtype}_it_{iters}.bin")
+    read_bin_slab(est, m).tofile(pred_est)  # predict writes <prefix>.yhat beside it
+    jobs = {
+        "test": ["--run-mode", "test", "--estimate-file", f"{run}_it_1.bin",
+                 "--test-iter-range", f"1,{iters}", "--out-name", f"test_{dtype}"] + test,
+        "se": ["--run-mode", "association_test", "--pval-method", "se",
+               "--r1-file", f"{run}_r1_it_{iters}.bin", "--gam1", repr(gam1),
+               "--out-name", f"assoc_{dtype}"] + train,
+        "predict": ["--run-mode", "predict", "--estimate-file", pred_est,
+                    "--out-name", f"pred_{dtype}"] + test,
+    }
+    for method in ("loo", "loo_std"):
+        jobs[method] = ["--run-mode", "association_test", "--pval-method", method,
+                        "--estimate-file", est, "--out-name", f"assoc_{dtype}"] + train
+    took = {}
+    for mode, argv in jobs.items():
+        t0 = time.perf_counter()
+        with engine_log(log_dir, f"cli_{dtype}_{mode}"):
+            check(cli.main(argv + common) == 0, f"cli {dtype} {mode} returned non-zero")
+        took[mode] = round(time.perf_counter() - t0, 2)
+    rows = np.asarray([r for r in read_positional_csv(os.path.join(d, f"test_{dtype}_test.csv"))])
+    check(rows.shape == (iters, 3) and np.all(np.isfinite(rows)), f"cli {dtype} test: bad CSV")
+    check(rows[-1, 1] > rows[0, 1] and rows[-1, 1] > 0.5, f"cli {dtype} test: R2 did not rise")
+    for method in ("se", "loo", "loo_std"):
+        pv = read_bin_slab(os.path.join(d, f"assoc_{dtype}_it_{iters}_pval_{method}.bin"), m)
+        check(bool(np.all((pv >= 0) & (pv <= 1))), f"cli {dtype} {method}: p-values outside [0, 1]")
+        check(np.median(pv[causal]) < np.median(pv[~causal]),
+              f"cli {dtype} {method}: causal markers not ranked above the others")
+    with open(os.path.join(d, f"pred_{dtype}_.yhat")) as f:
+        yhat = np.array([float(v) for v in f.read().split()])
+    check(yhat.shape == (n,) and bool(np.all(np.isfinite(yhat))), f"cli {dtype} predict: bad .yhat")
+    log(f"[cli] {dtype} run modes through files, seconds {took}; test R2 per iteration "
+        f"{np.round(rows[:, 1], 4).tolist()}")
 
 
 def planted_problem(dm, causal: int, h2: float = 0.8):
@@ -513,23 +600,31 @@ def planted_problem(dm, causal: int, h2: float = 0.8):
 
 
 # kernels each main-path run must launch at least once per iteration (the
-# A^T y kernels once more, for the constant A^T y of the setup)
+# A^T y kernels once more, for the constant A^T y of the setup); "auto"
+# resolves to spectral at the north star (N >= 2048 and Mt >= 4N)
 MAIN_KERNELS = {
     ("int8", "eigen"): ("atx_int8", "ax_batch_int8"),
+    ("int8", "auto"): ("atx_int8", "ax_batch_int8"),
     ("int8", "cg"): ("atx_int8", "ax_batch_int8", "atx_batch_int8"),
     ("int4", "eigen"): ("atx_packed4", "ax_batch_packed4"),
     ("int4", "cg"): ("atx_packed4", "ax_batch_packed4", "atx_batch_packed4"),
 }
 
 
+class MainPath(NamedTuple):
+    launches: dict          # kernel launches of the whole path
+    dataset: Dataset        # the planted design and its phenotype, for the run modes
+    beta: np.ndarray        # the planted effects, file units
+
+
 def phase_main(dtype: str, X: torch.Tensor, log_dir: str, out_dir: str, x1_min: float,
-               iters: int = 5, cg_iters: int = 2, cg_max_iter: int = 50) -> dict:
-    """The main path on a planted design over the codes X: 5 eigen and 2 CG
-    iterations, prior fixed at the truth, one causal marker per 1,024; each
-    solver once with the per-iteration outputs (CSV rows, .bin dumps) and
-    once without, for the wall without the dumps and the kernel launches of
-    a run.  Returns the kernel launches of the whole path (counts set to 0
-    just before it and read just after)."""
+               solvers=(("eigen", 5), ("cg", 2)), cg_max_iter: int = 50) -> MainPath:
+    """The main path on a planted design over the codes X, prior fixed at
+    the truth, one causal marker per 1,024: each (solver, iterations) of
+    `solvers` once with the per-iteration outputs (CSV rows, .bin dumps)
+    and once without, for the wall without the dumps and the kernel
+    launches of a run.  Launches are counted from 0 set just before the
+    path and read just after."""
     dev = X.device
     t0 = time.perf_counter()
     dm = design_from_packed(X) if dtype == "int4" else design_from_codes(X)
@@ -546,7 +641,7 @@ def phase_main(dtype: str, X: torch.Tensor, log_dir: str, out_dir: str, x1_min: 
         f"of X)")
     del W
     reset_launches()
-    for solver, k in (("eigen", iters), ("cg", cg_iters)):
+    for solver, k in solvers:
         cfg = RunConfig(out_dir=out_dir, out_name=f"main_{dtype}_{solver}", iterations=k,
                         lmmse_solver=solver, stop_criteria_thr=0.0, learn_vars=0,
                         learn_prior_delay=k, CG_max_iter=cg_max_iter, device=str(dev),
@@ -562,12 +657,15 @@ def phase_main(dtype: str, X: torch.Tensor, log_dir: str, out_dir: str, x1_min: 
         secs = res.iter_seconds
         steady = secs[1:] if len(secs) > 1 else secs
         setup = res.setup
-        extra = (f"gram {setup['gram']:.3f}s, eigh {setup['eigh']:.3f}s (residual "
-                 f"{setup['eigen_resid']:.2e}), " if solver == "eigen" else "")
-        log(f"[main {dtype}] {solver}: {extra}A^T y {setup['aty']:.4f}s; per-iteration "
-            f"seconds {[round(s, 4) for s in secs]}; {1.0 / np.mean(steady):.2f} it/s over "
-            f"iterations 2..{len(secs)}; peak memory {peak:.2f} GiB; kernel launches {count}; "
-            f"x1 corr {np.round(mh[:, 1], 4).tolist()}")
+        extra = f"gram {setup['gram']:.3f}s, " if "gram" in setup else ""
+        if "eigh" in setup:
+            extra += f"eigh {setup['eigh']:.3f}s (residual {setup['eigen_resid']:.2e}), "
+        log(f"[main {dtype}] {solver} (ran {res.solver}): {extra}A^T y {setup['aty']:.4f}s; "
+            f"per-iteration seconds {[round(s, 4) for s in secs]}; {1.0 / np.mean(steady):.2f} "
+            f"it/s over iterations 2..{len(secs)}; peak memory {peak:.2f} GiB; kernel launches "
+            f"{count}; x1 corr {np.round(mh[:, 1], 4).tolist()}")
+        check(res.solver == ("spectral" if solver == "auto" else solver),
+              f"{dtype} {solver}: the solver that ran was {res.solver}")
         check(np.all(np.isfinite(mh)) and np.all(np.isfinite(res.x1_hat_scaled)),
               f"{dtype} {solver}: outputs not finite")
         check(mh[-1, 1] > mh[0, 1], f"{dtype} {solver}: x1 correlation did not rise")
@@ -596,7 +694,155 @@ def phase_main(dtype: str, X: torch.Tensor, log_dir: str, out_dir: str, x1_min: 
             f"{[round(s, 4) for s in off.iter_seconds]}; kernel launches {count} in {k} "
             f"iterations and the setup's A^T y; max abs diff of the metrics against the run "
             f"with outputs {float(np.abs(mo - mh).max()):.3g}")
-    return launches()
+        if res.solver == "spectral":
+            params = read_positional_csv(os.path.join(out_dir, f"main_{dtype}_{solver}_params.csv"))
+            spectral_routes(dm, tau=params[-1][5], gam2=params[-1][4], tag=f"main {dtype}")
+    ds = Dataset(dm=dm, phen=Phenotype(y=y, intercept=0.0, scale=1.0), covariates=None,
+                 qscale=np.ones(m))  # the codes are the data: scale 1
+    return MainPath(launches(), ds, beta)
+
+
+def spectral_routes(dm, tau: float, gam2: float, tag: str) -> None:
+    """The spectral solver's dense step at the run's N and a shift of its last
+    iteration, timed alone (card_ms: means of back-to-back calls): the
+    factor alone, `shift_inverse` (the factor and W = L^{-1} by a triangular
+    solve against the identity, the route the engine takes), and the
+    factor and S^{-1} by torch.cholesky_inverse, the other route torch
+    offers; beside the least work, potrf + trtri = 2N^3/3 FLOPs at the f32
+    rate."""
+    t0 = time.perf_counter()
+    fac = build_spectral(dm)
+    torch.cuda.synchronize()
+    gram_s = time.perf_counter() - t0
+    n = fac.n
+    S = tau * fac.K + gam2 * torch.eye(n, device=fac.K.device)
+    L = torch.linalg.cholesky_ex(S)[0]
+    routes = {
+        "potrf": lambda: torch.linalg.cholesky_ex(S),
+        "shift_inverse (potrf + trsm)": lambda: shift_inverse(fac, tau, gam2),
+        "potrf + cholesky_inverse": lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(S)[0]),
+    }
+    ms = {name: card_ms(fn, reps=3, warmup=1, calls=KERNEL_CALLS) for name, fn in routes.items()}
+    winv = shift_inverse(fac, tau, gam2)
+    T_inv = float(torch.cholesky_inverse(L).diagonal().double().sum())
+    least = 1e3 * (2 * n**3 / 3) / F32_FLOPS
+    log(f"[{tag}] spectral dense step at N={n} (tau={tau:.6g}, gam2={gam2:.6g}; Gram rebuilt in "
+        f"{gram_s:.3f}s): " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+        + f"; least work potrf + trtri 2N^3/3 at 67 TFLOP/s {least:.3f} ms; T = tr S^-1 "
+        f"{float(winv.T):.9g} by W, {T_inv:.9g} by cholesky_inverse")
+    check(abs(float(winv.T) / T_inv - 1.0) < 1e-4, f"{tag}: the two routes' traces disagree")
+    del fac, S, L, winv
+    torch.cuda.empty_cache()
+
+
+MODE_KERNELS = {"int8": ("row_moments_int8", "atx_int8", "ax_batch_int8"),
+                "int4": ("row_moments_packed4", "atx_packed4", "ax_batch_packed4")}
+
+
+def phase_modes(dtype: str, main: MainPath, out_dir: str, est: str, r1: str, gam1: float,
+                test_runs: int) -> tuple[dict, dict]:
+    """The run modes at full width on the main path's design and dumps:
+    row_moments against its plain version (bitwise, timed in turns); LOO
+    (`loo`, `loo_std`) and SE p-values from the dumps `est` and `r1`, and
+    the LOO statistics of 4,096 rows against f64 on the host; test mode over
+    the estimates main_<dtype>_eigen_it_1..test_runs (one ax_batch pass);
+    predict.  Launches counted from 0 just before the modes and read just
+    after.  Returns ({kernel: record}, {kernel: launches})."""
+    ds = main.dataset
+    dm = ds.dm
+    m, n = dm.m_pad, int(dm.n)
+    name = MODE_KERNELS[dtype][0]
+    kn = KERNELS[name]
+    got, want = kn.fn(dm.X), kn.plain(dm.X)
+    check(torch.equal(got, want), f"{name} differs from its plain version at full shape")
+    check(torch.equal(got, kn.fn(dm.X)), f"{name} not bitwise repeatable")
+    ms, plain_ms, t_kern, t_plain = in_turns(lambda: kn.fn(dm.X), lambda: kn.plain(dm.X))
+    least_ms, least_by = bound(name, dm.X, 1)
+    log(f"[modes {dtype}] {name} X {tuple(dm.X.shape)}: bitwise equal to its plain version and "
+        f"repeatable; {ms:.3f} ms ({dm.X.numel() / ms / 1e6:.1f} GB/s of X; bound {least_ms:.3f} "
+        f"ms by {least_by}, {100 * least_ms / ms:.1f}% of it); plain {plain_ms:.3f} ms; runs "
+        f"{t_kern} / {t_plain}")
+    rec = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=least_ms, bound_by=least_by,
+               library_ms=None)
+    del got, want
+
+    cfg = RunConfig(out_dir=out_dir, out_name=f"modes_{dtype}", N=n, Mt=m, N_test=n, gam1=gam1,
+                    r1_file=r1, estimate_file=est, device=str(dm.device))
+    reset_launches()
+    took = {}
+    pv = {}
+    for method in ("se", "loo", "loo_std"):
+        t0 = time.perf_counter()
+        pv[method] = association.run_association_test(ds, dataclasses.replace(
+            cfg, pval_method=method))
+        took[method] = time.perf_counter() - t0
+        p = pv[method]
+        check(p.shape == (m,) and bool(np.all((p >= 0) & (p <= 1))),
+              f"{dtype} {method}: p-values not in [0, 1]")
+    causal = main.beta != 0
+    log(f"[modes {dtype}] association at M={m} N={n}: seconds "
+        f"{ {k: round(v, 3) for k, v in took.items()} }; p < 0.05/M: "
+        + ", ".join(f"{k} {int((v[causal] < 0.05 / m).sum())} of {int(causal.sum())} causal, "
+                    f"{int((v[~causal] < 0.05 / m).sum())} others" for k, v in pv.items()))
+
+    # the LOO statistics of 4,096 rows against f64 on the host
+    x1_up = read_bin_slab(est, m) * math.sqrt(n)
+    z1 = ax(dm, torch.as_tensor(x1_up, dtype=torch.float32, device=dm.device))
+    y_mod = ds.phen.y - z1.double().cpu().numpy()
+    sumx, sumsqx, xy = association._loo_stats(dm, y_mod)
+    rows = np.sort(np.random.default_rng(SEED).choice(m, 4096, replace=False))
+    C = codes64(dm.X[torch.as_tensor(rows, device=dm.device)]).cpu().numpy()
+    check(np.array_equal(sumx[rows], C.sum(axis=1))
+          and np.array_equal(sumsqx[rows], (C * C).sum(axis=1)),
+          f"{dtype} LOO: code sums differ from f64 on the host")
+    xy_err = float(np.max(np.abs(xy[rows] - C @ y_mod) / (np.abs(C) @ np.abs(y_mod))))
+    xh = x1_up[rows] / math.sqrt(n)
+    p_host = association.linear_reg1d_pvals(
+        C.sum(axis=1), (C * C).sum(axis=1), C @ y_mod + xh * (C * C).sum(axis=1),
+        y_mod.sum() + xh * C.sum(axis=1),
+        y_mod @ y_mod + xh * xh * (C * C).sum(axis=1) + 2 * xh * (C @ y_mod), n)
+    lg, lh = np.log10(pv["loo"][rows] + 1e-300), np.log10(p_host + 1e-300)
+    lp_err = float(np.max(np.abs(lg - lh) / (1.0 + np.abs(lh))))
+    log(f"[modes {dtype}] LOO statistics of 4,096 rows against f64 on the host: code sums "
+        f"equal; X y_mod max error {xy_err:.2e} of sum |x||y_mod|; log10 p max error "
+        f"{lp_err:.2e} of 1 + |log10 p|")
+    check(xy_err < KERNEL_TOL and lp_err < 1e-3, f"{dtype} LOO disagrees with f64")
+
+    t0 = time.perf_counter()
+    tcfg = dataclasses.replace(cfg, estimate_file=os.path.join(
+        out_dir, f"main_{dtype}_eigen_it_1.bin"), test_iter_range=[1, test_runs])
+    before = launches()
+    rows_t = test_mode.run_test_linear(ds, tcfg)
+    t_test = time.perf_counter() - t0
+    passes = launches()[MODE_KERNELS[dtype][2]] - before[MODE_KERNELS[dtype][2]]
+    check(len(rows_t) == test_runs and bool(np.all(np.isfinite(rows_t))),
+          f"{dtype} test: bad rows")
+    check(passes == 1, f"{dtype} test: {test_runs} estimates took {passes} passes, want 1")
+
+    pred_est = os.path.join(out_dir, f"pred_{dtype}_it_1.bin")
+    read_bin_slab(est, m).tofile(pred_est)
+    t0 = time.perf_counter()
+    z = predict.run_predict(ds, dataclasses.replace(cfg, estimate_file=pred_est))
+    t_pred = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"pred_{dtype}_.yhat")) as f:
+        lines = f.read().split()
+    check(len(lines) == n and bool(np.all(np.isfinite(z))), f"{dtype} predict: bad .yhat")
+    torch.cuda.synchronize()
+    counts = launches()
+    log(f"[modes {dtype}] test over {test_runs} estimates in {t_test:.3f}s (R2 "
+        f"{np.round([r[0] for r in rows_t], 4).tolist()}); predict in {t_pred:.3f}s; kernel "
+        f"launches of the modes {({k: c for k, c in counts.items() if c})}")
+    for k in MODE_KERNELS[dtype]:
+        check(counts[k] > 0, f"{dtype} modes: {k} never launched")
+    return {name: rec}, {name: counts[name]}
+
+
+def main_dumps(out_dir: str, dtype: str, solver: str, k: int) -> tuple[str, str, float]:
+    """The last iteration's estimate and r1 dumps of a main-path run, and the
+    gam1 its params CSV pairs with that r1."""
+    base = os.path.join(out_dir, f"main_{dtype}_{solver}")
+    gam1 = read_positional_csv(f"{base}_params.csv")[k - 1][2]
+    return f"{base}_it_{k}.bin", f"{base}_r1_it_{k}.bin", gam1
 
 
 def main(argv=None) -> int:
@@ -617,12 +863,23 @@ def main(argv=None) -> int:
         for dtype in DTYPES:
             phase_parity(dev, dtype, log_dir, out_dir)
         phase_cli(dev, log_dir)
-        counts = phase_main("int8", X8, log_dir, out_dir, x1_min=0.4)
-        del X8
+        main8 = phase_main("int8", X8, log_dir, out_dir, x1_min=0.4,
+                           solvers=(("eigen", 5), ("auto", 4), ("cg", 2)))
+        counts = dict(main8.launches)
+        mode_recs, mode_counts = phase_modes(
+            "int8", main8, out_dir, *main_dumps(out_dir, "int8", "auto", 4), test_runs=5)
+        recs.update(mode_recs)
+        counts.update(mode_counts)
+        del X8, main8
         torch.cuda.empty_cache()  # the int8 X goes before the int4 path
-        counts.update({name: c for name, c in phase_main(
-            "int4", X4, log_dir, out_dir, x1_min=X1_MIN_INT4).items()
-            if name in ("atx_packed4", "ax_batch_packed4", "atx_batch_packed4")})
+        main4 = phase_main("int4", X4, log_dir, out_dir, x1_min=X1_MIN_INT4)
+        counts.update({name: c for name, c in main4.launches.items()
+                       if name in ("atx_packed4", "ax_batch_packed4", "atx_batch_packed4")})
+        mode_recs, mode_counts = phase_modes(
+            "int4", main4, out_dir, *main_dumps(out_dir, "int4", "eigen", 5), test_runs=5)
+        recs.update(mode_recs)
+        counts.update(mode_counts)
+        del main4
         counts.update(probe_counts)
         for name, c in counts.items():
             check(c > 0, f"{name} was never launched on its own path")

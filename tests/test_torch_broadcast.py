@@ -126,8 +126,9 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
 
     real = {n: {p.name for p in _build.sources(n)} for n in
             ("atx_int8", "ax_batch_int8", "ax_batch_packed4", "atx_packed4", "atx_batch_packed4",
-             "atx_batch_int8", "stream", "atx_mxu", "ax_mxu", "ax2_packed4_mxu")}
+             "atx_batch_int8", "stream", "atx_mxu", "ax_mxu", "ax2_packed4_mxu", "row_moments")}
     assert real["ax_batch_int8"] == {"ax_batch_int8.cu", "xtw.cuh", "codes.cuh"}
+    assert real["row_moments"] == {"row_moments.cu", "codes.cuh"}
     for name in ("atx_batch_packed4", "atx_batch_int8", "atx_packed4"):
         assert real[name] == {f"{name}.cu", "xy.cuh", "codes.cuh"}
     assert real["atx_int8"] == {"atx_int8.cu"}

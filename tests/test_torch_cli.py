@@ -1,7 +1,8 @@
 """The port's CLI against the JAX CLI on the verify recipe's fixture
 (N = 200, M = 256): the same output files, the same positional CSV layout
-and values within tolerance; and SystemExit on every mode and flag the port
-does not run yet.
+and values within tolerance, for inference with each LMMSE solver and for the
+test, association_test and predict modes over f64, int8 and int4 designs;
+and SystemExit on every mode and flag the port does not run yet.
 
 The JAX CLI runs on the test suite's 8-device CPU mesh, so its sums run in
 another order; the CG comparison replays the JAX engine's seeded probes
@@ -23,6 +24,7 @@ from vampomi_tpu_torch.sim.data_sim import main as sim_main
 torch.set_num_threads(2)
 
 N, M = 200, 256
+SOLVERS = ["cg", "eigen", "spectral"]
 
 
 @pytest.fixture(scope="module")
@@ -57,7 +59,7 @@ def runs(fixture_dir):
     d = fixture_dir
     mp = pytest.MonkeyPatch()
     try:
-        for solver in ("cg", "eigen"):
+        for solver in SOLVERS:
             assert jcli_main(_args(d, f"jax_{solver}", solver)) in (0, None)
             feed = iter(_jax_probes(0, 8, M))
             mp.setattr(tlin, "_draw_probe", lambda gen, dm: next(feed))
@@ -71,14 +73,14 @@ def _outputs(d, prefix):
     return sorted(f[len(prefix):] for f in os.listdir(d) if f.startswith(prefix + "_"))
 
 
-@pytest.mark.parametrize("solver", ["cg", "eigen"])
+@pytest.mark.parametrize("solver", SOLVERS)
 def test_cli_writes_the_same_files(runs, solver):
     got, want = _outputs(runs, f"pt_{solver}"), _outputs(runs, f"jax_{solver}")
     assert got == want
     assert "_it_8.bin" in got and "_r1_it_8.bin" in got and "_trace.jsonl" in got
 
 
-@pytest.mark.parametrize("solver", ["cg", "eigen"])
+@pytest.mark.parametrize("solver", SOLVERS)
 @pytest.mark.parametrize("name", ["metrics", "params", "prior"])
 def test_cli_csv_layout_and_values_match(runs, solver, name):
     """Same header bytes, same positional layout (row offsets and NUL gaps),
@@ -101,7 +103,7 @@ def test_cli_csv_layout_and_values_match(runs, solver, name):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-9)
 
 
-@pytest.mark.parametrize("solver", ["cg", "eigen"])
+@pytest.mark.parametrize("solver", SOLVERS)
 def test_cli_estimates_match(runs, solver):
     for it in (1, 4, 8):
         got = np.fromfile(os.path.join(runs, f"pt_{solver}_it_{it}.bin"))
@@ -113,10 +115,10 @@ def test_cli_estimates_match(runs, solver):
 
 
 UNPORTED = [
-    ["--run-mode", "test"], ["--run-mode", "association_test"], ["--run-mode", "predict"],
-    ["--model", "bin_class"], ["--C", "2"], ["--resume-file", "ck.npz"],
+    ["--model", "bin_class"], ["--run-mode", "association_test", "--model", "bin_class"],
+    ["--C", "2"], ["--resume-file", "ck.npz"],
     ["--checkpoint-file", "ck.npz"], ["--eigen-cache", "e.npz"], ["--init-conf", "g.conf"],
-    ["--profile-dir", "prof"], ["--lmmse-solver", "spectral"], ["--compute-dtype", "bf16"],
+    ["--profile-dir", "prof"], ["--compute-dtype", "bf16"],
 ]
 
 
@@ -127,3 +129,86 @@ def test_cli_unported_modes_and_flags_exit(tmp_path, extra):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         tcli_main(argv + extra)
     assert not os.listdir(tmp_path)
+
+
+# ---------------------------------------------------------------------------
+# the run modes through files: both CLIs on the JAX eigen run's dumps
+
+KINDS = {"f64": "float64", "int8": "int8", "int4": "int4"}
+MODES = ["test", "se", "loo", "loo_std", "predict"]
+
+
+def _mode_args(d, mode, kind, out, est):
+    common = ["--Mt", str(M), "--out-dir", d, "--out-name", out,
+              "--compute-dtype", KINDS[kind]]
+    if mode in ("test", "predict"):
+        return ["--run-mode", mode, "--meth-file-test", f"{d}/example.bin",
+                "--phen-file-test", f"{d}/example.phen", "--N-test", str(N),
+                "--estimate-file", est, "--test-iter-range", "1,8"] + common
+    base = ["--run-mode", "association_test", "--meth-file", f"{d}/example.bin",
+            "--phen-file", f"{d}/example.phen", "--N", str(N), "--pval-method", mode]
+    if mode == "se":
+        return base + ["--r1-file", f"{d}/jax_eigen_r1_it_8.bin", "--gam1", "4.7"] + common
+    return base + ["--estimate-file", est] + common
+
+
+@pytest.fixture(scope="module")
+def mode_runs(runs):
+    """Every mode for every design kind through both CLIs; predict reads a
+    copy of the estimate per package, since it writes <prefix>.yhat beside
+    it."""
+    d = runs
+    est8 = np.fromfile(f"{d}/jax_eigen_it_8.bin")
+    for kind in KINDS:
+        for who, main, extra in (("jax", jcli_main, []), ("pt", tcli_main, ["--device", "cpu"])):
+            for mode in MODES:
+                out = f"{who}_{kind}_{mode}"
+                est = f"{d}/jax_eigen_it_1.bin" if mode == "test" else f"{d}/{out}_it_8.bin"
+                if mode != "test":
+                    est8.tofile(est)
+                assert main(_mode_args(d, mode, kind, out, est) + extra) in (0, None)
+    return d
+
+
+def _mode_output(d, who, kind, mode):
+    out = f"{d}/{who}_{kind}_{mode}"
+    if mode == "test":
+        return f"{out}_test.csv"
+    if mode == "predict":
+        return f"{out}_.yhat"
+    return f"{out}_it_8_pval_{mode}.bin"
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+@pytest.mark.parametrize("mode", MODES)
+def test_cli_modes_write_what_the_jax_cli_writes(mode_runs, kind, mode):
+    """The same file with the same layout; values to rtol 1e-9 for f64 (the
+    JAX CLI sums over its 8-device test mesh), within the quantized
+    designs' tolerance against JAX's bf16-rounded products otherwise (the
+    port's own quantized modes are held against the f64 brute force in
+    tests/test_torch_modes.py)."""
+    got_path, want_path = (_mode_output(mode_runs, w, kind, mode) for w in ("pt", "jax"))
+    got, want = open(got_path, "rb").read(), open(want_path, "rb").read()
+    assert len(got) > 0
+    if kind == "f64" or mode != "predict":  # %g text of other values may be shorter
+        assert len(got) == len(want)
+    if mode == "test":
+        assert got.split(b"\n")[0] == want.split(b"\n")[0]
+        g, w = (np.asarray(read_positional_csv(p)) for p in (got_path, want_path))
+        assert g.shape == (8, 3)
+    elif mode == "predict":
+        g, w = (np.array([float(v) for v in t.decode().split()]) for t in (got, want))
+        assert g.shape == (N,)
+    else:
+        g, w = np.frombuffer(got), np.frombuffer(want)
+        assert g.shape == (M,) and np.all((g >= 0) & (g <= 1))
+        if mode != "se":
+            g, w = np.log10(g + 1e-300), np.log10(w + 1e-300)
+    assert np.all(np.isfinite(g))
+    if mode == "se":
+        np.testing.assert_array_equal(g, w)  # r1 file and arithmetic shared
+    elif kind == "f64":
+        np.testing.assert_allclose(g, w, rtol=1e-4 if mode == "predict" else 1e-9,
+                                   atol=1e-5 if mode == "predict" else 1e-12)
+    else:
+        np.testing.assert_allclose(g, w, rtol=2e-2, atol=2e-2)

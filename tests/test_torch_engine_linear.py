@@ -304,16 +304,6 @@ def test_choose_lmmse_solver_keeps_the_jax_rule(tmp_path):
                 jlin.choose_lmmse_solver(JConfig(**kw), mt, n), (solver, mt, n)
 
 
-def test_auto_solver_resolving_to_spectral_raises(tmp_path):
-    """N >= 2048 and Mt >= 4N: auto resolves to spectral, which the port
-    lacks; it raises and names the solvers that run, never swaps one in."""
-    dm = build_design(np.random.default_rng(0).normal(size=(8192, 2048)).astype(np.float32),
-                      compute_dtype=torch.float32, device="cpu")
-    cfg = RunConfig(**cfg_kw(tmp_path, lmmse_solver="auto", device="cpu"))
-    with pytest.raises(NotImplementedError, match="--lmmse-solver eigen"):
-        tlin.infere_linear(dm, np.ones(2048), cfg, write_outputs=False)
-
-
 def test_warn_em_stability_matches_jax(tmp_path, capsys):
     for learn_vars, mt, n in ((1, 1600, 100), (1, 1500, 100), (0, 1600, 100)):
         kw = cfg_kw(tmp_path, learn_vars=learn_vars)

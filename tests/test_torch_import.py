@@ -27,6 +27,8 @@ import vampomi_tpu_torch.dataset, vampomi_tpu_torch.__main__
 import vampomi_tpu_torch.ops.packed4, vampomi_tpu_torch.ops.broadcast
 import vampomi_tpu_torch.ops.stream, vampomi_tpu_torch.ops.mxu
 import vampomi_tpu_torch.tools.matvec_floor_probe, vampomi_tpu_torch.tools.r4_probe
+import vampomi_tpu_torch.api, vampomi_tpu_torch.ops.moments, vampomi_tpu_torch.modes.association
+import vampomi_tpu_torch.modes.test_mode, vampomi_tpu_torch.modes.predict
 state1 = (str(torch.get_default_dtype()), torch.backends.cuda.matmul.allow_tf32,
           torch.get_float32_matmul_precision())
 added = sorted(set(sys.modules) - before)
@@ -45,7 +47,9 @@ def test_importing_the_port_pulls_in_no_jax():
            or m == "vampomi_tpu"]
     assert not bad, bad
     for mod in ("engine.linear", "ops.packed4", "ops.broadcast", "ops.atx_int8", "ops.stream",
-                "ops.mxu", "tools", "tools.matvec_floor_probe", "tools.r4_probe"):
+                "ops.mxu", "tools", "tools.matvec_floor_probe", "tools.r4_probe", "api",
+                "ops.moments", "ops.spectral", "modes.association", "modes.test_mode",
+                "modes.predict"):
         assert f"vampomi_tpu_torch.{mod}" in res["added"], mod
     assert res["same_state"], "importing the port changed global torch state"
 

@@ -26,6 +26,9 @@ from vampomi_tpu_torch.ops import operator as top
 from vampomi_tpu_torch.ops.atx_int8 import (
     atx_batch_int8, atx_batch_int8_plain, atx_int8, atx_int8_plain,
 )
+from vampomi_tpu_torch.ops.moments import (
+    row_moments_int8, row_moments_int8_plain, row_moments_packed4, row_moments_packed4_plain,
+)
 from vampomi_tpu_torch.ops.broadcast import (
     ax_batch_int8, ax_batch_int8_plain, ax_batch_packed4, ax_batch_packed4_plain,
 )
@@ -39,6 +42,7 @@ from vampomi_tpu_torch.ops.packed4 import (
 from vampomi_tpu_torch.ops.stream import (
     stream_rowsum, stream_rowsum_plain, stream_sum, stream_sum_plain,
 )
+from vampomi_tpu_torch.ops.spectral import GramFactor, shift_cholesky, shift_inverse
 from vampomi_tpu_torch.sim.data_sim import simulate_iid
 from vampomi_tpu_torch.tools import KERNEL_TOL
 
@@ -280,3 +284,84 @@ def test_dumps_byte_identical_and_pinned_on_card(cuda_device, tmp_path, monkeypa
                 a = (tmp_path / f"{side}_{kind}it_{it}.bin").read_bytes()
                 b = (tmp_path / f"{sync}_{kind}it_{it}.bin").read_bytes()
                 assert len(a) == 8 * 2048 and a == b, (side, kind, it)
+
+
+@pytest.mark.parametrize("kind", ["int8", "packed4"])
+@pytest.mark.parametrize("shape", [(1000, 1001), (4096, 10240), (77, 16), (3, 5), (1003, 96)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_row_moments_match_plain_bitwise_on_card(cuda_device, kind, shape, offset):
+    """Σ q and Σ q² per row equal the plain int64 sums bit for bit, on
+    aligned X and on a view one row in (the byte path when the row length or
+    the pointer rules out 16-byte loads); the full int8 byte range, -128
+    included."""
+    m, n = shape
+    nb = n if kind == "int8" else max(1, n // 2)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(m + offset)
+    lo, hi, dt = (-128, 128, torch.int8) if kind == "int8" else (0, 256, torch.uint8)
+    X = torch.randint(lo, hi, (m + offset, nb), dtype=dt, device=cuda_device,
+                      generator=g)[offset:]
+    kern, plain = ((row_moments_int8, row_moments_int8_plain) if kind == "int8"
+                   else (row_moments_packed4, row_moments_packed4_plain))
+    before = kern.launches
+    got = kern(X)
+    assert got.dtype == torch.int32 and got.shape == (m, 2)
+    assert torch.equal(got, plain(X))
+    assert torch.equal(got, kern(X))
+    assert kern.launches == before + 2
+
+
+def test_row_moments_extreme_rows_on_card(cuda_device):
+    """Rows of all -128 at the longest N the int32 squares allow, and packed
+    rows of all -8 codes: the sums at their limits."""
+    X = torch.full((5, 131071), -128, dtype=torch.int8, device=cuda_device)
+    got = row_moments_int8(X).cpu()
+    assert got[:, 0].tolist() == [-128 * 131071] * 5
+    assert got[:, 1].tolist() == [16384 * 131071] * 5
+    Xp = torch.zeros((5, 4096), dtype=torch.uint8, device=cuda_device)  # nibbles 0: codes -8
+    got = row_moments_packed4(Xp).cpu()
+    assert got[:, 0].tolist() == [-8 * 8192] * 5 and got[:, 1].tolist() == [64 * 8192] * 5
+
+
+@pytest.mark.parametrize("n", [512, 2048])
+def test_shift_inverse_on_card_matches_f64(cuda_device, n):
+    """W = L^{-1} and T = tr S^{-1} in f32 on the card against the f64
+    factor on the CPU: W S W^T = I to f32 accuracy at these well-conditioned
+    shifts; a shift that is not positive definite raises."""
+    rng = np.random.default_rng(n)
+    A = rng.standard_normal((n, 4 * n)) / np.sqrt(4 * n)
+    K = A @ A.T
+    tau, gam2 = 5.0, 0.3
+    S = tau * K + gam2 * np.eye(n)
+    want = shift_inverse(GramFactor(K=torch.as_tensor(K)), tau, gam2)
+    got = shift_inverse(GramFactor(K=torch.as_tensor(K, dtype=torch.float32,
+                                                     device=cuda_device)), tau, gam2)
+    W = got.W.double().cpu().numpy()
+    np.testing.assert_allclose(W @ S @ W.T, np.eye(n), atol=2e-4)
+    np.testing.assert_allclose(float(got.T), float(want.T), rtol=1e-5)
+    b = rng.standard_normal(n)
+    np.testing.assert_allclose(
+        got.solve(torch.as_tensor(b, dtype=torch.float32, device=cuda_device)).cpu().numpy(),
+        want.solve(torch.as_tensor(b)).numpy(), rtol=1e-4, atol=1e-5 * np.abs(b).max())
+    with pytest.raises(RuntimeError, match="not positive definite"):
+        shift_cholesky(GramFactor(K=torch.as_tensor(K, dtype=torch.float32,
+                                                    device=cuda_device)), -tau, gam2)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, top.PACKED4_DTYPE])
+def test_a_column_does_not_depend_on_its_batch_on_card(cuda_device, dtype):
+    """Test mode sends 8 estimates through one ax_batch pass: each column at
+    K = 8 against the same column alone (K = 1) and in a batch of 3, within
+    f32 rounding (the kernel's split of the marker sum follows K)."""
+    rng = np.random.default_rng(0)
+    dm = top.build_design(rng.uniform(size=(20000, 1024)), compute_dtype=dtype,
+                          device=cuda_device)
+    xs = torch.as_tensor(rng.normal(size=(20000, 8)), dtype=torch.float32, device=cuda_device)
+    full = top.ax_batch(dm, xs)
+    for k in range(8):
+        tol = 1e-5 * float(full[:, k].abs().max())
+        alone = top.ax_batch(dm, xs[:, k:k + 1].contiguous())[:, 0]
+        torch.testing.assert_close(alone, full[:, k], rtol=0, atol=tol)
+        lo = min(k, 5)
+        three = top.ax_batch(dm, xs[:, lo:lo + 3].contiguous())[:, k - lo]
+        torch.testing.assert_close(three, full[:, k], rtol=0, atol=tol)

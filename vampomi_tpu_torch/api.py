@@ -1,0 +1,191 @@
+"""High-level in-memory Python API: arrays in, arrays out (port of
+vampomi_tpu/api.py).
+
+The CLI (cli.py) is the flag-for-flag reference surface; this module is the
+library entry point for users whose design matrix and phenotype are already
+numpy arrays — no .bin/.phen files, no output directory.  It wraps the same
+engine code the CLI drives (ops/operator.build_design →
+engine/linear.infere_linear), so every number matches a file-driven run at
+the same configuration and seed:
+
+    import vampomi_tpu_torch.api as va
+    fit = va.fit_linear(X, y, iterations=10, h2=0.8,
+                        probs=[0.9, 0.1], vars=[0.0, 1e-2])
+    fit.x1_hat_scaled          # (M,) posterior-mean effects, file units
+    va.h2_estimate(fit)        # 1 - 1/gamma_w (reference scripts/metrics.py:134)
+    p = va.association_pvals(fit, n=X.shape[0])       # SE p-values, in memory
+    yhat = va.predict_linear(fit, X_new)              # out-of-sample score
+
+Where the JAX package takes `mesh=`, this takes `device=` ("cuda" by
+default; it raises without a card, and never runs on the CPU instead).
+
+Conventions (the reference's): `X` is sample-major (N, M) like sklearn, or
+marker-major (M, N) with marker_major=True; linear `y` is scaled by 1/sd but
+NOT centered (src/data.cpp:88-103); returned effects are in "file units"
+(x1_hat / sqrt(N), src/vamp.cpp:237-239), what the `_it_<k>.bin` dumps hold.
+The probit entry points wait for the probit engine (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+
+import numpy as np
+import torch
+
+from .config import RunConfig, resolve_device
+from .engine.linear import LinearResult, infere_linear
+from .modes.association import pvals_se
+from .ops.operator import DesignMatrix, ax, build_design
+
+__all__ = [
+    "fit_linear", "fit_probit", "predict_linear", "predict_probit",
+    "association_pvals", "h2_estimate", "standardize_phenotype", "LinearResult",
+]
+
+
+def _marker_major(X, marker_major: bool) -> np.ndarray:
+    X = np.asarray(X, dtype=np.float64)
+    if X.ndim != 2:
+        raise ValueError(f"X must be 2-D, got shape {X.shape}")
+    return X if marker_major else np.ascontiguousarray(X.T)
+
+
+def standardize_phenotype(y) -> tuple[np.ndarray, float]:
+    """(y * 1/sd, 1/sd) — the reference's read_phen transform: scaled by the
+    inverse sample sd, NOT centered (src/data.cpp:88-103; io/phen.py)."""
+    y = np.asarray(y, dtype=np.float64).ravel()
+    avg = float(y.sum() / y.size)
+    ss = float(np.sum((y - avg) ** 2))
+    if ss == 0.0:
+        raise ValueError("phenotype is constant — cannot standardize")
+    sqn = float(np.sqrt((y.size - 1.0) / ss))
+    return y * sqn, sqn
+
+
+def _make_config(n: int, mt: int, device: str, config: dict) -> RunConfig:
+    cfg = RunConfig()
+    # meth_file is the CLI's mandatory flag (cfg.check()); the API feeds
+    # arrays directly, so mark the source for error messages only
+    cfg.meth_file = "<in-memory>"
+    for k, v in config.items():
+        if not hasattr(cfg, k):
+            raise TypeError(f"unknown configuration field {k!r} "
+                            f"(see vampomi_tpu_torch.config.RunConfig)")
+        setattr(cfg, k, list(v) if isinstance(v, tuple) else v)
+    cfg.N, cfg.Mt, cfg.model, cfg.device = n, mt, "linear", str(device)
+    return cfg
+
+
+def _build(Xm: np.ndarray, device, cfg: RunConfig) -> DesignMatrix:
+    return build_design(Xm, compute_dtype=cfg.resolved_compute_dtype(),
+                        device=resolve_device(device), alpha_scale=cfg.alpha_scale)
+
+
+def fit_linear(
+    X,
+    y,
+    *,
+    marker_major: bool = False,
+    device: str = "cuda",
+    standardize_y: bool = True,
+    true_signal=None,
+    x1hat_init=None,
+    covariates=None,
+    quiet: bool = False,
+    **config,
+) -> LinearResult:
+    """Linear gVAMP on in-memory arrays.
+
+    X: (N, M) sample-major (or (M, N) with marker_major=True), y: (N,) raw
+    phenotype.  `config` kwargs are RunConfig fields (iterations, h2, probs,
+    vars, rho, compute_dtype, lmmse_solver, seed, ...).  No files are
+    written.  `quiet` suppresses the engine's reference-style narration.
+    Covariates are not ported yet: the engine raises naming ROADMAP.md.
+    Returns the engine LinearResult (x1_hat_scaled in file units)."""
+    Xm = _marker_major(X, marker_major)
+    y = np.asarray(y, dtype=np.float64).ravel()
+    if y.size != Xm.shape[1]:
+        raise ValueError(f"y has {y.size} samples but X has {Xm.shape[1]}")
+    if standardize_y:
+        y, _ = standardize_phenotype(y)
+    cfg = _make_config(y.size, Xm.shape[0], device, config)
+    dm = _build(Xm, device, cfg)
+    sink = io.StringIO() if quiet else None
+    with contextlib.redirect_stdout(sink) if sink else contextlib.nullcontext():
+        return infere_linear(
+            dm, y, cfg,
+            true_signal=None if true_signal is None else np.asarray(true_signal, dtype=np.float64),
+            x1hat_init=None if x1hat_init is None else np.asarray(x1hat_init, dtype=np.float64),
+            covariates=None if covariates is None else np.asarray(covariates, dtype=np.float64),
+            write_outputs=False,
+        )
+
+
+def _beta_of(fit) -> np.ndarray:
+    if isinstance(fit, LinearResult):
+        return np.asarray(fit.x1_hat_scaled, dtype=np.float64)
+    return np.asarray(fit, dtype=np.float64).ravel()
+
+
+def predict_linear(
+    fit,
+    X_new,
+    *,
+    marker_major: bool = False,
+    device: str = "cuda",
+    compute_dtype: str = "auto",
+    alpha_scale: float = 1.0,
+) -> np.ndarray:
+    """Out-of-sample linear score: A_test (beta * sqrt(N_test)).
+
+    Mirrors the reference test mode's rescale-by-sqrt(N_test) of a file-unit
+    estimate (src/main_meth.cpp:174-175): X_new is standardized with ITS OWN
+    marker statistics, exactly as a test-split .bin would be.  `fit` is a
+    LinearResult or a bare (M,) file-unit effect vector.  The score is in
+    standardized-phenotype units (compare against y_test * 1/sd_test)."""
+    beta = _beta_of(fit)
+    Xm = _marker_major(X_new, marker_major)
+    if Xm.shape[0] != beta.size:
+        raise ValueError(f"fit has {beta.size} markers but X_new has {Xm.shape[0]}")
+    cfg = RunConfig(compute_dtype=compute_dtype, alpha_scale=alpha_scale, device=str(device))
+    dm = _build(Xm, device, cfg)
+    xp = np.zeros(dm.m_pad, dtype=np.float64)
+    xp[:beta.size] = beta * np.sqrt(float(Xm.shape[1]))
+    z = ax(dm, torch.as_tensor(xp).to(device=dm.device, dtype=dm.wd))
+    return z.cpu().numpy().astype(np.float64)
+
+
+def association_pvals(fit, n: int, method: str = "se") -> np.ndarray:
+    """Marker association p-values from a fit, fully in memory.
+
+    method="se": the reference's r1/gam1 normal test (scripts/p_vals.py:44-62,
+    src/main_meth.cpp:233-239) on the fit's final (r1, gam1) extrinsic pair.
+    The LOO variants need the raw design matrix and live in
+    modes/association.pvals_loo (file-driven)."""
+    if method != "se":
+        raise ValueError("in-memory association supports method='se'; "
+                         "use modes/association.run_association_test or the "
+                         "CLI --run-mode association_test for loo/loo_std")
+    if fit.r1_scaled is None:
+        raise ValueError("fit carries no r1")
+    return pvals_se(np.asarray(fit.r1_scaled), float(fit.gam1), int(n))
+
+
+def h2_estimate(fit: LinearResult) -> float:
+    """Heritability estimate 1 - 1/gamma_w (reference scripts/metrics.py:134;
+    gamma_w is the EM noise precision of the 1/sd-scaled phenotype)."""
+    return 1.0 - 1.0 / float(fit.gamw)
+
+
+def fit_probit(*args, **kwargs):
+    """Probit GLM-VAMP: not ported yet (ROADMAP.md, the probit slice)."""
+    raise NotImplementedError("fit_probit: the probit engine is not ported yet "
+                              "(see ROADMAP.md); use vampomi_tpu.api meanwhile")
+
+
+def predict_probit(*args, **kwargs):
+    """Probit prediction: not ported yet (ROADMAP.md, the probit slice)."""
+    raise NotImplementedError("predict_probit: not ported yet with the probit engine "
+                              "(see ROADMAP.md); use vampomi_tpu.api meanwhile")

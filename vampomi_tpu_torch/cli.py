@@ -2,10 +2,13 @@
 (vampomi_tpu/cli.py:21-120, flag-compatible with the reference) plus
 `--device {cuda,cpu}`.
 
-Ported: `--run-mode infere --model linear` with the cg and eigen LMMSE
-solvers over f64, f32, int8 and packed-int4 (`--compute-dtype int4`)
-designs.  Every other mode, model and the flags below exit with a message
-naming ROADMAP.md; none is replaced by other behaviour.
+Ported: `--run-mode infere --model linear` with the cg, spectral and eigen
+LMMSE solvers (auto picks as the JAX package does) over f64, f32, int8 and
+packed-int4 (`--compute-dtype int4`) designs; `--run-mode test` and
+`predict` for both models (their probit branches need only the estimates);
+`--run-mode association_test` (`--pval-method se | loo | loo_std`) for the
+linear model.  Every other mode, model and the flags below exit with a
+message naming ROADMAP.md; none is replaced by other behaviour.
 
     python -m vampomi_tpu_torch.cli --device cuda --meth-file x.bin ...
 """
@@ -84,9 +87,10 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--seed", type=int, default=0)
     x.add_argument("--lmmse-solver", default="auto",
                    choices=["auto", "cg", "spectral", "eigen"],
-                   help="LMMSE solve: CG (reference-parity) or the eigen path "
-                        "(once-per-dataset eigh of the Gram matrix); spectral "
-                        "is not ported yet")
+                   help="LMMSE solve: CG (reference-parity), the exact "
+                        "spectral/Woodbury path (a Cholesky of the Gram "
+                        "matrix's shift every iteration), or the eigen path "
+                        "(once-per-dataset eigh of the Gram matrix)")
     x.add_argument("--spectral-max-n", type=int, default=16384,
                    help="auto solver picks spectral only when N <= this")
     x.add_argument("--eigen-cache", default="")
@@ -134,10 +138,10 @@ def _reject_unported(cfg: RunConfig, init_conf: str) -> None:
     """SystemExit naming ROADMAP.md for every mode, model and flag the
     port does not run yet."""
     bad = []
-    if cfg.run_mode != "infere":
-        bad.append(f"--run-mode {cfg.run_mode}")
-    if cfg.model != "linear":
-        bad.append(f"--model {cfg.model}")
+    # the probit engine is a later slice; test and predict need only its
+    # estimates
+    if cfg.model != "linear" and cfg.run_mode not in ("test", "predict"):
+        bad.append(f"--model {cfg.model} with --run-mode {cfg.run_mode}")
     if cfg.C > 0:
         bad.append("--C > 0 (covariates)")
     for flag, val in (("--resume-file", cfg.resume_file),
@@ -147,8 +151,6 @@ def _reject_unported(cfg: RunConfig, init_conf: str) -> None:
                       ("--profile-dir", cfg.profile_dir)):
         if val:
             bad.append(flag)
-    if cfg.lmmse_solver == "spectral":
-        bad.append("--lmmse-solver spectral")
     if cfg.compute_dtype in NOT_PORTED_DTYPES:
         bad.append(f"--compute-dtype {cfg.compute_dtype}")
     if bad:
@@ -158,21 +160,43 @@ def _reject_unported(cfg: RunConfig, init_conf: str) -> None:
 
 
 def main(argv: list[str] | None = None) -> int:
+    """Dispatch the run mode as vampomi_tpu/cli.py:199-254 does: infere and
+    association_test load the training split, test and predict the test
+    split (`--meth-file-test`, `--phen-file-test`, `--N-test`)."""
     cfg = parse_config(sys.argv[1:] if argv is None else argv)
     device = resolve_device(cfg.device)
     dtype = cfg.resolved_compute_dtype()
 
     from .dataset import load_dataset
-    from .engine.linear import infere_linear
-    from .io.bin_io import read_bin_slab
 
-    ds = load_dataset(cfg.meth_file, cfg.phen_file, cfg.N, cfg.Mt, cfg.model,
-                      dtype, device, alpha_scale=cfg.alpha_scale)
-    true_signal = (read_bin_slab(cfg.true_signal_file, cfg.Mt)
-                   if cfg.true_signal_file else None)
-    x1hat_init = (read_bin_slab(cfg.estimate_file, cfg.Mt)
-                  if cfg.estimate_file else None)
-    infere_linear(ds.dm, ds.phen.y, cfg, true_signal, x1hat_init)
+    if cfg.run_mode in ("infere", "association_test"):
+        ds = load_dataset(cfg.meth_file, cfg.phen_file, cfg.N, cfg.Mt, cfg.model,
+                          dtype, device, alpha_scale=cfg.alpha_scale)
+    else:
+        ds = load_dataset(cfg.meth_file_test, cfg.phen_file_test, cfg.N_test, cfg.Mt,
+                          cfg.model, dtype, device, alpha_scale=cfg.alpha_scale)
+
+    if cfg.run_mode == "infere":
+        from .engine.linear import infere_linear
+        from .io.bin_io import read_bin_slab
+
+        true_signal = (read_bin_slab(cfg.true_signal_file, cfg.Mt)
+                       if cfg.true_signal_file else None)
+        x1hat_init = (read_bin_slab(cfg.estimate_file, cfg.Mt)
+                      if cfg.estimate_file else None)
+        infere_linear(ds.dm, ds.phen.y, cfg, true_signal, x1hat_init)
+    elif cfg.run_mode == "test":
+        from .modes.test_mode import run_test_linear, run_test_probit
+
+        (run_test_probit if cfg.model == "bin_class" else run_test_linear)(ds, cfg)
+    elif cfg.run_mode == "association_test":
+        from .modes.association import run_association_test
+
+        run_association_test(ds, cfg)
+    else:
+        from .modes.predict import run_predict
+
+        run_predict(ds, cfg)
     return 0
 
 

@@ -1,10 +1,10 @@
 """Carry the JAX package's state into the port's objects.
 
 Each function takes a dict of numpy arrays — the fields of a JAX
-`DesignMatrix`, `MixturePrior`, `GramFactor` or `EigenFactor`, already
-fetched with np.asarray by the caller — and builds the port's counterpart on
-a given device.  Parity tests go through these so that both packages compute
-on identical inputs.  Nothing here imports jax.
+`DesignMatrix`, `MixturePrior`, `GramFactor`, `ShiftInverse` or
+`EigenFactor`, already fetched with np.asarray by the caller — and builds the
+port's counterpart on a given device.  Parity tests go through these so that
+both packages compute on identical inputs.  Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import torch
 
 from .ops.eigen import EigenFactor
 from .ops.operator import DesignMatrix
-from .ops.spectral import GramFactor
+from .ops.spectral import GramFactor, ShiftInverse
 from .prior.mixture import MixturePrior
 
 _NP_TO_TORCH = {
@@ -63,6 +63,16 @@ def gram_from_arrays(d: dict, device: str | torch.device = "cpu",
     """GramFactor from `K` (dtype kept unless given)."""
     K = torch.tensor(np.asarray(d["K"]))
     return GramFactor(K=K.to(device=device, dtype=dtype or K.dtype))
+
+
+def shift_inverse_from_arrays(d: dict, device: str | torch.device = "cpu",
+                              dtype: torch.dtype | None = None) -> ShiftInverse:
+    """ShiftInverse from `W, T`; T is f64, W keeps its dtype unless given."""
+    W = torch.tensor(np.asarray(d["W"]))
+    return ShiftInverse(
+        W=W.to(device=device, dtype=dtype or W.dtype),
+        T=torch.tensor(np.asarray(d["T"], dtype=np.float64)).to(device),
+    )
 
 
 def eigen_from_arrays(d: dict, device: str | torch.device = "cpu",

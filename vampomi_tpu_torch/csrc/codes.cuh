@@ -69,6 +69,14 @@ struct Codes<2> {
   }
 };
 
+// the codes of a packed word's eight nibbles as two words of signed bytes:
+// byte i of `lo` (of `hi`) is the code of byte i's low (high) nibble, the
+// nibble minus its bias of 8 in each byte apart (no carry between bytes)
+__device__ __forceinline__ void nibble_codes(unsigned w, unsigned& lo, unsigned& hi) {
+  lo = __vsub4(w & 0x0F0F0F0Fu, 0x08080808u);
+  hi = __vsub4((w >> 4) & 0x0F0F0F0Fu, 0x08080808u);
+}
+
 __device__ __forceinline__ unsigned pick(const uint4& v, int k) {
   // register select (no local-memory array indexing)
   return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));

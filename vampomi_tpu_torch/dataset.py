@@ -3,7 +3,8 @@ vampomi_tpu/dataset.py:24-83, single process).
 
 Loading is host-side numpy: the whole (Mt, N) f64 marker-major `.bin` is
 read, quantized (and for int4 packed two codes to a byte) or cast, and
-copied to the device once.
+copied to the device once.  The same loader reads the training split
+(`--meth-file`, `--N`) and the test split (`--meth-file-test`, `--N-test`).
 """
 
 from __future__ import annotations
@@ -15,13 +16,18 @@ import torch
 
 from .io.bin_io import read_meth_bin
 from .io.phen import Phenotype, read_phen
-from .ops.operator import DesignMatrix, build_design
+from .ops.operator import PACKED4_DTYPE, DesignMatrix, build_design
 
 
 class Dataset(NamedTuple):
     dm: DesignMatrix
     phen: Phenotype
     covariates: np.ndarray | None
+    # per-marker dequantization scale (length Mt f64) when dm.X holds affine-
+    # quantized codes; None for float designs.  The LOO association add-back
+    # (modes/association.py pvals_loo) needs it to express the reference's
+    # raw-marker coefficient in code space.
+    qscale: np.ndarray | None = None
 
 
 def load_dataset(
@@ -35,9 +41,15 @@ def load_dataset(
     alpha_scale: float = 1.0,
 ) -> Dataset:
     """Load a (train or test) dataset onto `device`."""
+    if compute_dtype == PACKED4_DTYPE and n % 2 != 0:
+        raise ValueError(
+            f"{meth_file}: the packed int4 design (--compute-dtype int4) holds two "
+            f"samples per byte and needs an even sample count, got {n} (--N or "
+            "--N-test); use --compute-dtype int8")
     standardize = model != "bin_class"  # reference src/data.cpp:40-43
     phen = read_phen(phen_file, n, standardize=standardize)
     X = read_meth_bin(meth_file, n, mt)
+    qinfo: dict = {}
     dm = build_design(X, compute_dtype=compute_dtype, device=device,
-                      alpha_scale=alpha_scale)
-    return Dataset(dm=dm, phen=phen, covariates=None)
+                      alpha_scale=alpha_scale, quant_out=qinfo)
+    return Dataset(dm=dm, phen=phen, covariates=None, qscale=qinfo.get("scale"))
