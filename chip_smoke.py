@@ -25,14 +25,22 @@ Phases (each prints its own lines; any failure ends the run non-zero):
                 the packed X), with launch counts; prints each tool's JSON
                 summary line; the read-floor sums beside torch's own int32
                 sums (their library yardstick), in turns.
-  3. parity   — infere_linear on the card against the same port on the CPU
-                at M = 16,384 x N = 2,048 (data_sim), int8 and int4: eigen
-                and spectral for 4 iterations, cg for 3.
+                row_moments_int8 on rows past the int32 range of a sum of
+                squares (N = 262,144 and a ragged 262,147), bitwise against
+                its plain version and the exact integers.
+  3. parity   — infere_linear and infere_bin_class (probit) on the card
+                against the same port on the CPU at M = 16,384 x N = 2,048
+                (data_sim; 0/1 labels for probit), int8 and int4: eigen and
+                spectral for 4 iterations, cg for 3, the same p1 and probes;
+                then C = 2 covariates, once for each model (int8).
   4. cli      — the CLI through files (N = 2,000 x M = 8,000), int8 and
                 int4, with eigen, spectral and cg (every output file must
                 exist, be finite, and the x1 correlation must rise); then
                 test, association_test (se, loo, loo_std) and predict on the
-                eigen run's dumps.
+                eigen run's dumps; then --model bin_class (int8 with each
+                solver, one of them with --C 2 --cov-file, and int4 eigen),
+                linear with --C 2, and test, predict and association_test
+                with --model bin_class on the probit eigen run's dumps.
   5. main     — the int8 main path at the north-star shape: a planted design
                 (1,024 causal markers, h2 = 0.8, prior fixed at the truth),
                 5 eigen iterations, 4 with --lmmse-solver auto (which must
@@ -47,6 +55,16 @@ Phases (each prints its own lines; any failure ends the run non-zero):
                 SE, LOO and loo_std p-values, the LOO statistics of 4,096
                 rows against f64 on the host; test mode over the 5 eigen
                 estimates in one pass; predict; with launch counts.
+  5c. probit  — probit GLM-VAMP on the same design: 0/1 labels
+                y = 1[A beta sqrt(N) + N(0, 1) > 0] of the planted effects,
+                the prior started at the truth with its variances fixed;
+                4 iterations of --lmmse-solver auto (spectral there), 4 of
+                eigen and 2 of CG (capped at 50 steps), each with the outputs
+                on and then off; setup and per-iteration seconds, peak
+                memory, acc1/acc2, x1 correlation and launches, checked
+                exactly from the launch counts (exact solvers: atx_int8 2 and
+                ax_batch_int8 1 an iteration; CG: atx_batch_int8 once a CG
+                step and once for the initial residual).
   6. int4     — phases 5 (eigen and CG) and 5b at M = 2,097,152 x
                 N = 10,240 on a planted packed design (2,048 causal markers:
                 the same density), after the int8 X is freed.
@@ -86,6 +104,7 @@ from vampomi_tpu_torch import cli  # noqa: E402
 from vampomi_tpu_torch.config import RunConfig, resolve_device  # noqa: E402
 from vampomi_tpu_torch.dataset import Dataset  # noqa: E402
 from vampomi_tpu_torch.engine.linear import infere_linear  # noqa: E402
+from vampomi_tpu_torch.engine.probit import infere_bin_class  # noqa: E402
 from vampomi_tpu_torch.io.bin_io import read_bin_slab  # noqa: E402
 from vampomi_tpu_torch.io.csv_writer import read_positional_csv  # noqa: E402
 from vampomi_tpu_torch.io.phen import Phenotype  # noqa: E402
@@ -135,6 +154,11 @@ SEED = 20261016
 PARITY_RTOL = {"eigen": 1e-4, "spectral": 1e-4, "cg": 1e-3}
 PARITY_ATOL = 1e-5  # metrics that start at 0 at the cold start
 PRIOR3 = dict(probs=[0.9, 0.07, 0.03], vars=[0.0, 1e-3, 1e-2], h2=0.8)
+PROBIT = dict(probs=[0.9, 0.07, 0.03], vars=[0.0, 1e-3, 1e-2], rho=0.3, gam1=1e-2)
+# probit labels are thresholds of z: a sample whose z lies within the f32
+# rounding of 0 may take the other label on the card, so the confusion
+# counts agree to a few samples, not to rtol
+PARITY_LABELS = 3
 # the least x1 correlation the int4 main path must reach: the JAX int4
 # engine on down-scaled copies of its planted problem (M/N = 204, one causal
 # marker per 1,024, prior fixed at the truth) peaks at 0.367 (CG, 2
@@ -242,11 +266,11 @@ def bound(name: str, X: torch.Tensor, k: int) -> tuple[float, str]:
     read-floor sums at one add per byte, counted at the f32 rate, with X and
     their int32 sums crossing HBM once; the row moments at three operations
     per code (an add for the sum, a multiply and an add for the squares) at
-    the f32 rate, with X and two int32 a row crossing HBM once."""
+    the f32 rate, with X and two int64 a row crossing HBM once."""
     kn = KERNELS[name]
     if kn.kind == "moments":
         codes = X.numel() * (2 if X.dtype == PACKED4_DTYPE else 1)
-        return bound_ms(X.numel() + 8 * X.shape[0], 3 * codes)
+        return bound_ms(X.numel() + 16 * X.shape[0], 3 * codes)
     if kn.kind != "stream":
         return matvec_bound(X, k, kn.kind == "cols", BF16_FLOPS if kn.bf16 else F32_FLOPS)
     out = 4 * X.shape[0] if name == "stream_rowsum" else 4
@@ -365,7 +389,30 @@ def phase_kernel(dev: str) -> tuple[torch.Tensor, torch.Tensor, dict]:
             Xr = random_codes(m, n if dtype == torch.int8 else n // 2, dtype, SEED + 6, dev)
             for k in (1, 2, 3, 8):
                 check_kernel(name, Xr, rhs(n, k), timed=False)
+    check_long_rows(dev)
     return X8, X4, recs
+
+
+def check_long_rows(dev: str) -> None:
+    """row_moments_int8 on rows whose sum of squares leaves int32: all codes
+    -128 at N = 262,144 (Σq² = 4.29e9, the 16-byte path) and codes of
+    -128 and 127 at a ragged N = 262,147 (the byte path), bitwise against
+    the plain version and the exact integers, and repeatable."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 7)
+    rows = {262_144: torch.full((4, 262_144), -128, dtype=torch.int8, device=dev),
+            262_147: (torch.randint(0, 2, (5, 262_147), device=dev, generator=g) * 255
+                      - 128).to(torch.int8)}
+    for n, X in rows.items():
+        got = row_moments_int8(X)
+        q = X.long()
+        exact = torch.stack([q.sum(dim=1), (q * q).sum(dim=1)], dim=1)
+        check(got.dtype == torch.int64 and torch.equal(got, row_moments_int8_plain(X))
+              and torch.equal(got, exact), f"row_moments_int8 wrong at N = {n}")
+        check(torch.equal(got, row_moments_int8(X)), f"row_moments_int8 not repeatable at N = {n}")
+        log(f"[kernel] row_moments_int8 X {tuple(X.shape)} int8: bitwise equal to its plain "
+            f"version and the exact sums (largest sum of squares {int(got[:, 1].max())}, "
+            f"int32 max {2**31 - 1})")
 
 
 def check_stream(name: str, X: torch.Tensor) -> dict:
@@ -457,42 +504,77 @@ def _params_rows(d: str, name: str) -> np.ndarray:
     return np.asarray(read_positional_csv(os.path.join(d, f"{name}_params.csv")))
 
 
-def run_pair(devices, dtype: str, m: int, n: int, log_dir: str, out_dir: str,
-             iters: dict) -> dict:
-    """infere_linear on each device on the same quantized design; returns
-    the per-iteration [alpha1, gam1, alpha2, gam2, gamw] + metrics per run."""
+def parity_problem(m: int, n: int, model: str, c: int):
+    """The parity phase's fixture (data_sim): the read_phen-scaled phenotype
+    or, for probit, 0/1 labels y = 1[X beta + N(0, 1) > 0]; with c > 0, c
+    covariates that shift it."""
     fx = simulate_iid(n=n, m=m, lam=0.1, h2=PRIOR3["h2"], seed=SEED)
-    y = fx.y * math.sqrt((n - 1.0) / np.sum((fx.y - fx.y.mean()) ** 2))
+    rng = np.random.default_rng(SEED + 8)
+    Z = rng.normal(size=(n, c)) if c else None
+    shift = Z @ np.linspace(0.6, -0.4, c) if c else 0.0
+    if model == "bin_class":
+        y = (fx.X @ fx.beta + shift + rng.normal(size=n) > 0).astype(np.float64)
+    else:
+        y = fx.y + shift
+        y = y * math.sqrt((n - 1.0) / np.sum((y - y.mean()) ** 2))
+    return fx, y, Z
+
+
+def run_pair(devices, dtype: str, m: int, n: int, log_dir: str, out_dir: str,
+             iters: dict, model: str = "linear", c: int = 0) -> dict:
+    """infere_linear or infere_bin_class on each device on the same quantized
+    design (the same seed, so the same p1 and probes); returns each run's
+    per-iteration params + metrics rows."""
+    fx, y, Z = parity_problem(m, n, model, c)
+    engine, hyper = ((infere_bin_class, PROBIT) if model == "bin_class"
+                     else (infere_linear, PRIOR3))
     out = {}
     for solver, k in iters.items():
         for dev in devices:
             dm = build_design(fx.X.T, compute_dtype=DTYPES[dtype], device=dev)
-            name = f"parity_{dtype}_{solver}_{dev}"
-            cfg = RunConfig(out_dir=out_dir, out_name=name, iterations=k,
+            name = f"parity_{model}_{dtype}_{solver}_c{c}_{dev}"
+            cfg = RunConfig(out_dir=out_dir, out_name=name, iterations=k, model=model,
                             lmmse_solver=solver, stop_criteria_thr=0.0, device=dev,
-                            seed=SEED, **PRIOR3)
+                            seed=SEED, C=c, **hyper)
             with engine_log(log_dir, name):
-                res = infere_linear(dm, y, cfg, true_signal=fx.beta)
+                res = engine(dm, y, cfg, true_signal=fx.beta, covariates=Z)
             p = _params_rows(out_dir, cfg.out_name)[:, 1:]
             out[(solver, dev)] = np.concatenate([p, np.asarray(res.metrics_history)], axis=1)
     return out
 
 
-def phase_parity(dev: str, dtype: str, log_dir: str, out_dir: str, m: int = 16_384,
-                 n: int = 2_048) -> None:
+def phase_parity(dev: str, dtype: str, log_dir: str, out_dir: str, model: str = "linear",
+                 c: int = 0, iters: dict | None = None, m: int = 16_384, n: int = 2_048) -> None:
+    """Card against CPU.  Linear rows: 5 params, 6 metrics, each to the
+    solver's rtol.  Probit rows: 8 params and the two correlations to the
+    same rtol; the eight confusion counts to PARITY_LABELS samples and the
+    two accuracies to PARITY_LABELS / N."""
     t0 = time.perf_counter()
-    runs = run_pair([dev, "cpu"], dtype, m, n, log_dir, out_dir,
-                    {"eigen": 4, "spectral": 4, "cg": 3})
-    for solver in ("eigen", "spectral", "cg"):
+    iters = iters or {"eigen": 4, "spectral": 4, "cg": 3}
+    runs = run_pair([dev, "cpu"], dtype, m, n, log_dir, out_dir, iters, model, c)
+    if model == "bin_class":
+        counts = [8, 9, 10, 11, 14, 15, 16, 17]  # after the 8 params
+        accs, x1_col = [12, 18], 13
+    else:
+        counts, accs, x1_col = [], [], 6
+    tag = f"{model} {dtype}" + (f", C = {c}" if c else "")
+    for solver in iters:
         a, b = runs[(solver, dev)], runs[(solver, "cpu")]
-        check(a.shape == b.shape and np.all(np.isfinite(a)), f"{solver}: bad shapes or values")
-        err = np.abs(a - b) / np.maximum(np.abs(b), PARITY_ATOL / PARITY_RTOL[solver])
-        log(f"[parity] {solver} M={m} N={n} {dtype}, {a.shape[0]} iterations: max rel diff "
-            f"card vs cpu {err.max():.3e} (tolerance {PARITY_RTOL[solver]:g}, atol "
-            f"{PARITY_ATOL:g}); x1 corr per it {np.round(a[:, 6], 6).tolist()}")
-        check(np.all(np.abs(a - b) <= PARITY_RTOL[solver] * np.abs(b) + PARITY_ATOL),
-              f"{dtype} {solver}: card and cpu disagree")
-    log(f"[parity] {dtype} done in {time.perf_counter() - t0:.1f}s")
+        check(a.shape == b.shape and np.all(np.isfinite(a)), f"{tag} {solver}: bad shapes or values")
+        cont = [j for j in range(a.shape[1]) if j not in counts + accs]
+        ac, bc = a[:, cont], b[:, cont]
+        err = np.abs(ac - bc) / np.maximum(np.abs(bc), PARITY_ATOL / PARITY_RTOL[solver])
+        labels = np.abs(a[:, counts] - b[:, counts]).max() if counts else 0.0
+        log(f"[parity] {tag} {solver} M={m} N={n}, {a.shape[0]} iterations: max rel diff card vs "
+            f"cpu {err.max():.3e} (tolerance {PARITY_RTOL[solver]:g}, atol {PARITY_ATOL:g})"
+            + (f", confusion counts within {labels:g} samples (tolerance {PARITY_LABELS})"
+               if counts else "") + f"; x1 corr per it {np.round(a[:, x1_col], 6).tolist()}")
+        check(np.all(np.abs(ac - bc) <= PARITY_RTOL[solver] * np.abs(bc) + PARITY_ATOL),
+              f"{tag} {solver}: card and cpu disagree")
+        check(labels <= PARITY_LABELS
+              and np.all(np.abs(a[:, accs] - b[:, accs]) <= PARITY_LABELS / n + 1e-12),
+              f"{tag} {solver}: card and cpu labels disagree")
+    log(f"[parity] {tag} done in {time.perf_counter() - t0:.1f}s")
 
 
 def phase_cli(dev: str, log_dir: str, n: int = 2_000, m: int = 8_000, iters: int = 8) -> None:
@@ -582,6 +664,108 @@ def cli_modes(dev: str, d: str, paths: dict, causal: np.ndarray, dtype: str, ite
     check(yhat.shape == (n,) and bool(np.all(np.isfinite(yhat))), f"cli {dtype} predict: bad .yhat")
     log(f"[cli] {dtype} run modes through files, seconds {took}; test R2 per iteration "
         f"{np.round(rows[:, 1], 4).tolist()}")
+
+
+def _csv_raw(path: str) -> np.ndarray:
+    """Rows of a positional CSV without a header (the probit test CSV)."""
+    text = open(path, "rb").read().replace(b"\0", b"").decode()
+    return np.array([[float(v) for v in line.split(",")] for line in text.splitlines()
+                     if line.strip()])
+
+
+def phase_cli_probit(dev: str, log_dir: str, n: int = 2_000, m: int = 8_000,
+                     iters: int = 6) -> None:
+    """--model bin_class through files: int8 with eigen, spectral (with
+    --C 2 --cov-file) and cg, int4 with eigen; linear int8 eigen with
+    --C 2; then test, predict and association_test (se, loo, loo_std) with
+    --model bin_class on the probit int8 eigen run's dumps.  Every output
+    exists and is finite; the probit params CSV has 9 columns (8 values)."""
+    with tempfile.TemporaryDirectory(prefix="vampomi_cli_probit_") as d:
+        fx = simulate_iid(n=n, m=m, lam=0.1, h2=0.8, seed=SEED)
+        paths = write_fixture(fx, d, "ex")
+        rng = np.random.default_rng(SEED + 9)
+        Z = rng.normal(size=(n, 2))
+        y01 = (fx.X @ fx.beta + Z @ [0.6, -0.4] + rng.normal(size=n) > 0).astype(int)
+        with open(os.path.join(d, "ex_bin.phen"), "w") as f:
+            f.writelines(f"{i} {i} {v}\n" for i, v in enumerate(y01))
+        with open(os.path.join(d, "ex.cov"), "w") as f:
+            f.write("ID FID age batch\n")
+            f.writelines(f"{i} {i} {a!r} {b!r}\n" for i, (a, b) in enumerate(Z.tolist()))
+        cov = ["--C", "2", "--cov-file", os.path.join(d, "ex.cov")]
+        runs = {"bin_int8_eigen": ("bin_class", "int8", "eigen", []),
+                "bin_int8_spectral_cov": ("bin_class", "int8", "spectral", cov),
+                "bin_int8_cg": ("bin_class", "int8", "cg", []),
+                "bin_int4_eigen": ("bin_class", "int4", "eigen", []),
+                "lin_int8_eigen_cov": ("linear", "int8", "eigen", cov)}
+        for out, (model, dtype, solver, extra) in runs.items():
+            phen = os.path.join(d, "ex_bin.phen") if model == "bin_class" else paths["phen"]
+            hyper = (["--rho", "0.3", "--gam1", "1e-2"] if model == "bin_class"
+                     else ["--h2", "0.8"])
+            argv = ["--run-mode", "infere", "--model", model, "--meth-file", paths["bin"],
+                    "--phen-file", phen, "--true-signal-file", paths["ts"], "--N", str(n),
+                    "--Mt", str(m), "--out-dir", d, "--out-name", out, "--iterations",
+                    str(iters), "--stop-criteria-thr", "0", "--probs", "0.9,0.07,0.03",
+                    "--vars", "0.0,0.001,0.01", "--device", dev, "--compute-dtype", dtype,
+                    "--lmmse-solver", solver] + hyper + extra
+            t0 = time.perf_counter()
+            with engine_log(log_dir, f"cli_{out}"):
+                check(cli.main(argv) == 0, f"cli {out} returned non-zero")
+            took = time.perf_counter() - t0
+            want = {f"{out}_{s}.csv" for s in ("metrics", "params", "prior")}
+            want |= {f"{out}_trace.jsonl"}
+            want |= {f"{out}_{k}it_{i}.bin" for k in ("", "r1_") for i in range(1, iters + 1)}
+            have = {f for f in os.listdir(d) if f.startswith(out + "_")}
+            check(have == want, f"cli {out}: files {sorted(have ^ want)} differ")
+            for f in sorted(want):
+                p = os.path.join(d, f)
+                if f.endswith(".bin"):
+                    check(bool(np.all(np.isfinite(read_bin_slab(p, m)))), f"{f} not finite")
+                elif f.endswith(".csv"):
+                    check(bool(np.all(np.isfinite(read_positional_csv(p)))), f"{f} not finite")
+            params = np.asarray(read_positional_csv(os.path.join(d, f"{out}_params.csv")))
+            check(params.shape == (iters, 9 if model == "bin_class" else 6),
+                  f"cli {out}: params CSV of shape {params.shape}")
+            met = np.asarray(read_positional_csv(os.path.join(d, f"{out}_metrics.csv")))
+            quality = (f"acc1 {np.round(met[:, 5], 4).tolist()}, x1 corr "  # after the iteration
+                       f"{np.round(met[:, 6], 4).tolist()}" if model == "bin_class"
+                       else f"x1 corr {np.round(met[:, 2], 4).tolist()}")
+            log(f"[cli] {out}: {len(want)} files in {took:.1f}s; {quality}")
+
+        run = os.path.join(d, "bin_int8_eigen")
+        est = f"{run}_it_{iters}.bin"
+        pred_est = os.path.join(d, f"pred_bin_it_{iters}.bin")
+        read_bin_slab(est, m).tofile(pred_est)
+        gam1 = read_positional_csv(f"{run}_params.csv")[-1][3]
+        common = ["--Mt", str(m), "--out-dir", d, "--compute-dtype", "int8", "--device", dev,
+                  "--model", "bin_class"]
+        train = ["--meth-file", paths["bin"], "--phen-file", os.path.join(d, "ex_bin.phen"),
+                 "--N", str(n)]
+        test = ["--meth-file-test", paths["bin"], "--phen-file-test",
+                os.path.join(d, "ex_bin.phen"), "--N-test", str(n)]
+        jobs = {"test": ["--run-mode", "test", "--estimate-file", f"{run}_it_1.bin",
+                         "--test-iter-range", f"1,{iters}", "--out-name", "test_bin"] + test,
+                "predict": ["--run-mode", "predict", "--estimate-file", pred_est,
+                            "--out-name", "pred_bin"] + test,
+                "se": ["--run-mode", "association_test", "--pval-method", "se", "--r1-file",
+                       f"{run}_r1_it_{iters}.bin", "--gam1", repr(gam1),
+                       "--out-name", "assoc_bin"] + train}
+        for method in ("loo", "loo_std"):
+            jobs[method] = ["--run-mode", "association_test", "--pval-method", method,
+                            "--estimate-file", est, "--out-name", "assoc_bin"] + train
+        for mode, argv in jobs.items():
+            with engine_log(log_dir, f"cli_bin_{mode}"):
+                check(cli.main(argv + common) == 0, f"cli bin_class {mode} returned non-zero")
+        rows = _csv_raw(os.path.join(d, "test_bin_test.csv"))
+        check(rows.shape == (iters, 6) and np.all(np.isfinite(rows)), "cli bin_class test: bad CSV")
+        with open(os.path.join(d, "pred_bin_.yhat")) as f:
+            yhat = np.array([float(v) for v in f.read().split()])
+        check(yhat.shape == (n,) and bool(np.all(np.isfinite(yhat))), "cli bin_class predict")
+        for method in ("se", "loo", "loo_std"):
+            pv = read_bin_slab(os.path.join(d, f"assoc_bin_it_{iters}_pval_{method}.bin"), m)
+            check(bool(np.all((pv >= 0) & (pv <= 1))), f"cli bin_class {method}: p-values")
+        log(f"[cli] bin_class run modes through files: test accuracy per iteration "
+            f"{np.round(rows[:, 5], 4).tolist()}; predict, association_test se, loo, loo_std "
+            f"written and finite")
 
 
 def planted_problem(dm, causal: int, h2: float = 0.8):
@@ -735,6 +919,75 @@ def spectral_routes(dm, tau: float, gam2: float, tag: str) -> None:
     torch.cuda.empty_cache()
 
 
+def _trace_steps(path: str) -> list[int]:
+    """The CG steps of each iteration, from a run's <out>_trace.jsonl."""
+    with open(path) as f:
+        return [json.loads(line)["cg_iters"] for line in f if line.strip()]
+
+
+def phase_probit_main(main: MainPath, log_dir: str, out_dir: str,
+                      solvers=(("auto", 4), ("eigen", 4), ("cg", 2)),
+                      cg_max_iter: int = 50, h2: float = 0.8) -> dict:
+    """Probit GLM-VAMP on the main path's planted int8 design: 0/1 labels
+    y = 1[sqrt(N) A beta + N(0, 1) > 0] (the liability model, probit_var 1,
+    sum beta^2 ~ h2), the prior started at the truth with its variances
+    fixed (the probit engine's EM still moves the weights from iteration
+    2).  Each (solver, iterations) once with the per-iteration outputs and
+    once without; the launches of each run are checked exactly against the
+    X passes the engine makes.  Returns the launches of all the runs, counted
+    from 0 set just before and read just after."""
+    dm = main.dataset.dm
+    dev = dm.device
+    m, n = dm.m_pad, int(dm.n)
+    beta = main.beta
+    causal = int((beta != 0).sum())
+    g = math.sqrt(n) * ax(dm, torch.as_tensor(beta, dtype=torch.float32, device=dev))
+    y = (g.double().cpu().numpy() + np.random.default_rng(SEED + 5).normal(size=n) > 0)
+    y = y.astype(np.float64)
+    prior = dict(probs=[1.0 - causal / m, causal / m], vars=[0.0, h2 / causal])
+    log(f"[probit] planted labels on M={m} N={n}: {int(y.sum())} cases of {n}, {causal} "
+        f"causal, prior started at the truth")
+    reset_launches()
+    for solver, k in solvers:
+        cfg = RunConfig(out_dir=out_dir, out_name=f"probit_{solver}", model="bin_class",
+                        iterations=k, lmmse_solver=solver, stop_criteria_thr=0.0, learn_vars=0,
+                        CG_max_iter=cg_max_iter, device=str(dev), seed=SEED, rho=0.3,
+                        gam1=1e-2, **prior)
+        for outputs in (True, False):
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = launches()
+            with engine_log(log_dir, f"probit_{solver}" + ("" if outputs else "_off")):
+                res = infere_bin_class(dm, y, cfg, true_signal=beta, write_outputs=outputs)
+            torch.cuda.synchronize()
+            count = {name: c - before[name] for name, c in launches().items() if c > before[name]}
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            mh = np.asarray(res.metrics_history)
+            secs = res.iter_seconds
+            steady = secs[1:] if len(secs) > 1 else secs
+            setup = ", ".join(f"{key} {v:.3f}s" if key != "eigen_resid" else f"residual {v:.2e}"
+                              for key, v in res.setup.items())
+            log(f"[probit] {solver} (ran {res.solver}), outputs {'on' if outputs else 'off'}: "
+                f"setup {setup or 'none'}; per-iteration seconds {[round(t, 4) for t in secs]}; "
+                f"{1.0 / np.mean(steady):.2f} it/s over iterations 2..{len(secs)}; peak memory "
+                f"{peak:.2f} GiB; kernel launches {count}; acc1 {np.round(mh[:, 4], 4).tolist()}, "
+                f"acc2 {np.round(mh[:, 10], 4).tolist()}, x1 corr {np.round(mh[:, 5], 4).tolist()}")
+            check(res.solver == ("spectral" if solver == "auto" else solver),
+                  f"probit {solver}: the solver that ran was {res.solver}")
+            check(mh.shape == (k, 12) and np.all(np.isfinite(mh))
+                  and np.all(np.isfinite(res.x1_hat_scaled)), f"probit {solver}: not finite")
+            if res.solver == "cg":
+                if outputs:
+                    steps = _trace_steps(os.path.join(out_dir, f"probit_{solver}_trace.jsonl"))
+                # A^T p2 each iteration; ax of x1 and x2 and the initial
+                # residual's pass each iteration, then one pass each way a step
+                want = {"atx_int8": k, "ax_batch_int8": sum(steps) + 3 * k,
+                        "atx_batch_int8": sum(steps) + k}
+            else:
+                want = {"atx_int8": 2 * k, "ax_batch_int8": k}
+            check(count == want, f"probit {solver}: launches {count}, want {want}")
+    return launches()
+
+
 MODE_KERNELS = {"int8": ("row_moments_int8", "atx_int8", "ax_batch_int8"),
                 "int4": ("row_moments_packed4", "atx_packed4", "ax_batch_packed4")}
 
@@ -862,7 +1115,12 @@ def main(argv=None) -> int:
         recs.update(probe_recs)
         for dtype in DTYPES:
             phase_parity(dev, dtype, log_dir, out_dir)
+            phase_parity(dev, dtype, log_dir, out_dir, model="bin_class")
+        phase_parity(dev, "int8", log_dir, out_dir, model="bin_class", c=2,
+                     iters={"spectral": 4, "cg": 3})
+        phase_parity(dev, "int8", log_dir, out_dir, c=2, iters={"eigen": 4})
         phase_cli(dev, log_dir)
+        phase_cli_probit(dev, log_dir)
         main8 = phase_main("int8", X8, log_dir, out_dir, x1_min=0.4,
                            solvers=(("eigen", 5), ("auto", 4), ("cg", 2)))
         counts = dict(main8.launches)
@@ -870,6 +1128,9 @@ def main(argv=None) -> int:
             "int8", main8, out_dir, *main_dumps(out_dir, "int8", "auto", 4), test_runs=5)
         recs.update(mode_recs)
         counts.update(mode_counts)
+        probit_counts = phase_probit_main(main8, log_dir, out_dir)
+        for name in ("atx_int8", "ax_batch_int8", "atx_batch_int8"):  # both main paths
+            counts[name] += probit_counts[name]
         del X8, main8
         torch.cuda.empty_cache()  # the int8 X goes before the int4 path
         main4 = phase_main("int4", X4, log_dir, out_dir, x1_min=X1_MIN_INT4)

@@ -2,8 +2,8 @@
 the CPU: the same fit through both packages' engines (f64, the exact
 solvers, which draw no random probes), the same out-of-sample scores,
 p-values, heritability and phenotype scaling; the port's fit equals its own
-engine run on the CLI's wiring; the probit entry points and a missing card
-raise."""
+engine run on the CLI's wiring; the probit fit and prediction, and
+covariates on both paths, against JAX; a missing card raises."""
 
 import numpy as np
 import pytest
@@ -118,16 +118,83 @@ def test_unknown_config_field_and_shape_mismatch_raise(fx):
         ta.fit_linear(fx.X, fx.y[:-1], device="cpu")
 
 
-@pytest.mark.parametrize("fn", [ta.fit_probit, ta.predict_probit])
-def test_probit_entry_points_name_the_roadmap(fx, fn):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fn(fx.X, fx.y)
+@pytest.fixture(scope="module")
+def probit_fits(fx):
+    """fit_probit through both packages (eigen, f64) on 0/1 labels with two
+    covariates, the port replaying JAX's initial p1."""
+    from tests.test_torch_probit import replay_draws
+
+    rng = np.random.default_rng(3)
+    Z = rng.normal(size=(fx.X.shape[0], 2))
+    y01 = (fx.y + Z @ [0.8, -0.5] > np.median(fx.y)).astype(float)
+    kw = dict(HYPER, lmmse_solver="eigen", rho=0.3, gam1=1e-2, C=2)
+    want = ja.fit_probit(fx.X, y01, mesh=None, quiet=True, covariates=Z, **kw)
+    mp = pytest.MonkeyPatch()
+    try:
+        replay_draws(mp, HYPER["seed"], fx.X.shape[0], fx.X.shape[1], 5, np.float64,
+                     probes=False)
+        got = ta.fit_probit(fx.X, y01, device="cpu", quiet=True, covariates=Z, **kw)
+    finally:
+        mp.undo()
+    return want, got, Z, y01
 
 
-def test_covariates_name_the_roadmap(fx):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ta.fit_linear(fx.X, fx.y, device="cpu", quiet=True,
-                      covariates=np.ones((fx.X.shape[0], 1)), C=1)
+def test_fit_probit_matches_jax(probit_fits):
+    want, got, _, _ = probit_fits
+    assert isinstance(got, ta.ProbitResult)
+    assert got.iterations_run == want.iterations_run == 5
+    np.testing.assert_allclose(got.cov_eff, want.cov_eff, rtol=1e-12)
+    np.testing.assert_allclose(got.x1_hat_scaled, want.x1_hat_scaled, rtol=1e-6, atol=1e-12)
+    np.testing.assert_allclose(np.asarray(got.metrics_history),
+                               np.asarray(want.metrics_history), rtol=1e-6, atol=1e-12)
+    assert got.metrics_history[-1][4] > 0.7  # denoiser accuracy
+
+
+@pytest.mark.parametrize("return_proba", [False, True])
+@pytest.mark.parametrize("with_cov", [False, True])
+def test_predict_probit_matches_jax(probit_fits, fx, return_proba, with_cov):
+    """Labels Phi(z) >= 0.5 (int64) or Phi(z + Z cov_eff), on new samples,
+    each package from its own fit."""
+    want_fit, got_fit, Z, _ = probit_fits
+    rng = np.random.default_rng(12)
+    X_new = rng.binomial(2, 0.3, size=(150, fx.X.shape[1])).astype(float)
+    Z_new = rng.normal(size=(150, 2)) if with_cov else None
+    got = ta.predict_probit(got_fit, X_new, device="cpu", covariates=Z_new,
+                            return_proba=return_proba)
+    want = ja.predict_probit(want_fit, X_new, mesh=None, covariates=Z_new,
+                             return_proba=return_proba)
+    assert got.shape == (150,) and got.dtype == want.dtype
+    if return_proba:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-8)
+        assert np.all((got >= 0) & (got <= 1))
+    else:
+        assert set(np.unique(got)) <= {0, 1}
+        np.testing.assert_array_equal(got, want)
+    z = ta.predict_linear(got_fit, X_new, device="cpu")
+    if with_cov:
+        z = z + Z_new @ got_fit.cov_eff
+    if not return_proba:
+        np.testing.assert_array_equal(got, (z >= 0).astype(np.int64))
+
+
+def test_fit_probit_checks_its_labels(fx):
+    with pytest.raises(ValueError, match="0/1"):
+        ta.fit_probit(fx.X, fx.y, device="cpu", quiet=True, **HYPER)
+    with pytest.raises(ValueError, match="samples"):
+        ta.fit_probit(fx.X, np.ones(3), device="cpu", quiet=True, **HYPER)
+
+
+def test_fit_linear_with_covariates_matches_jax(fx):
+    """covariates (C = 2) on the linear path: the Newton fit once, y - Z
+    cov_eff in the constant A^T y (src/vamp.cpp:153-169), spectral, f64."""
+    Z = np.random.default_rng(7).normal(size=(fx.X.shape[0], 2))
+    y = fx.y + Z @ [0.7, -0.3]
+    kw = dict(HYPER, lmmse_solver="spectral", C=2)
+    want = ja.fit_linear(fx.X, y, mesh=None, quiet=True, covariates=Z, **kw)
+    got = ta.fit_linear(fx.X, y, device="cpu", quiet=True, covariates=Z, **kw)
+    np.testing.assert_allclose(got.x1_hat_scaled, want.x1_hat_scaled, rtol=1e-6, atol=1e-12)
+    np.testing.assert_allclose(got.gamw, want.gamw, rtol=1e-6)
+    assert "cov" in got.setup
 
 
 def test_default_device_is_the_card(fx, monkeypatch):
@@ -138,3 +205,5 @@ def test_default_device_is_the_card(fx, monkeypatch):
         ta.fit_linear(fx.X, fx.y, quiet=True, **HYPER)
     with pytest.raises(RuntimeError, match="is_available"):
         ta.predict_linear(fx.beta, fx.X)
+    with pytest.raises(RuntimeError, match="is_available"):
+        ta.fit_probit(fx.X, (fx.y > 0).astype(float), quiet=True, **HYPER)

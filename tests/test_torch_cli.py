@@ -2,7 +2,8 @@
 (N = 200, M = 256): the same output files, the same positional CSV layout
 and values within tolerance, for inference with each LMMSE solver and for the
 test, association_test and predict modes over f64, int8 and int4 designs;
-and SystemExit on every mode and flag the port does not run yet.
+probit inference (`--model bin_class`) and covariates (`--C`, `--cov-file`)
+for both models; and SystemExit on every flag the port does not run yet.
 
 The JAX CLI runs on the test suite's 8-device CPU mesh, so its sums run in
 another order; the CG comparison replays the JAX engine's seeded probes
@@ -115,8 +116,7 @@ def test_cli_estimates_match(runs, solver):
 
 
 UNPORTED = [
-    ["--model", "bin_class"], ["--run-mode", "association_test", "--model", "bin_class"],
-    ["--C", "2"], ["--resume-file", "ck.npz"],
+    ["--resume-file", "ck.npz"],
     ["--checkpoint-file", "ck.npz"], ["--eigen-cache", "e.npz"], ["--init-conf", "g.conf"],
     ["--profile-dir", "prof"], ["--compute-dtype", "bf16"],
 ]
@@ -129,6 +129,117 @@ def test_cli_unported_modes_and_flags_exit(tmp_path, extra):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         tcli_main(argv + extra)
     assert not os.listdir(tmp_path)
+
+
+# ---------------------------------------------------------------------------
+# probit inference and covariates through files: both CLIs on the fixture's
+# design with 0/1 labels and a covariate file; the port replays JAX's p1
+# (and, for CG, its probes)
+
+PROBIT_CASES = {  # name: (model, solver, with covariates)
+    "bin_cg": ("bin_class", "cg", False),
+    "bin_spectral": ("bin_class", "spectral", False),
+    "bin_eigen": ("bin_class", "eigen", False),
+    "bin_spectral_cov": ("bin_class", "spectral", True),
+    "lin_eigen_cov": ("linear", "eigen", True),
+}
+
+
+def _probit_args(d, out, model, solver, cov):
+    phen = f"{d}/example_bin.phen" if model == "bin_class" else f"{d}/example.phen"
+    argv = ["--run-mode", "infere", "--model", model, "--meth-file", f"{d}/example.bin",
+            "--phen-file", phen, "--true-signal-file", f"{d}/example_ts.bin", "--N", str(N),
+            "--Mt", str(M), "--out-dir", d, "--out-name", out, "--iterations", "6",
+            "--probs", "0.9,0.07,0.03", "--vars", "0.0,0.001,0.01", "--lmmse-solver", solver,
+            "--stop-criteria-thr", "1e-8"]
+    argv += ["--rho", "0.3", "--gam1", "1e-2"] if model == "bin_class" else ["--h2", "0.8"]
+    return argv + (["--C", "2", "--cov-file", f"{d}/example.cov"] if cov else [])
+
+
+@pytest.fixture(scope="module")
+def probit_runs(runs):
+    """Every case through both CLIs.  The 0/1 labels threshold the
+    fixture's phenotype at its median; two covariates shift it."""
+    from tests.test_torch_probit import replay_draws
+
+    d = runs
+    rows = [line.split() for line in open(f"{d}/example.phen").read().splitlines()]
+    y = np.array([float(r[2]) for r in rows])
+    Z = np.random.default_rng(8).normal(size=(N, 2))
+    with open(f"{d}/example_bin.phen", "w") as f:
+        for r, v in zip(rows, (y + Z @ [0.6, -0.4] > np.median(y)).astype(int)):
+            f.write(f"{r[0]} {r[1]} {v}\n")
+    with open(f"{d}/example.cov", "w") as f:
+        f.write("ID FID c1 c2\n")
+        for r, z in zip(rows, Z):
+            f.write(f"{r[0]} {r[1]} {float(z[0])!r} {float(z[1])!r}\n")
+    for name, (model, solver, cov) in PROBIT_CASES.items():
+        assert jcli_main(_probit_args(d, f"jax_{name}", model, solver, cov)) in (0, None)
+        mp = pytest.MonkeyPatch()
+        try:
+            replay_draws(mp, 0, N, M, 6, jax.numpy.float64, probes=solver == "cg")
+            argv = _probit_args(d, f"pt_{name}", model, solver, cov) + ["--device", "cpu"]
+            assert tcli_main(argv) == 0
+        finally:
+            mp.undo()
+    return d
+
+
+@pytest.mark.parametrize("case", list(PROBIT_CASES))
+def test_cli_probit_and_covariates_write_the_same_files(probit_runs, case):
+    got, want = _outputs(probit_runs, f"pt_{case}"), _outputs(probit_runs, f"jax_{case}")
+    assert got == want
+    assert "_it_6.bin" in got and "_r1_it_6.bin" in got and "_trace.jsonl" in got
+
+
+@pytest.mark.parametrize("case", list(PROBIT_CASES))
+@pytest.mark.parametrize("name", ["metrics", "params", "prior"])
+def test_cli_probit_and_covariates_csvs_match(probit_runs, case, name):
+    """Same header and positional layout (the probit params row holds 8
+    values under the 6-name header, its prior row the ×N variances), values
+    to rtol 1e-5 as the linear runs above."""
+    pt = open(os.path.join(probit_runs, f"pt_{case}_{name}.csv"), "rb").read()
+    jx = open(os.path.join(probit_runs, f"jax_{case}_{name}.csv"), "rb").read()
+    assert len(pt) == len(jx)
+    assert pt.split(b"\n", 1)[0] == jx.split(b"\n", 1)[0]
+    assert [i for i, b in enumerate(pt) if b == 0] == [i for i, b in enumerate(jx) if b == 0]
+    got = np.asarray(read_positional_csv(os.path.join(probit_runs, f"pt_{case}_{name}.csv")))
+    want = np.asarray(read_positional_csv(os.path.join(probit_runs, f"jax_{case}_{name}.csv")))
+    if name == "params":
+        assert got.shape[1] == (9 if PROBIT_CASES[case][0] == "bin_class" else 6)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.parametrize("case", list(PROBIT_CASES))
+def test_cli_probit_and_covariates_estimates_match(probit_runs, case):
+    for it in (1, 3, 6):
+        for kind in ("it", "r1_it"):
+            got = np.fromfile(os.path.join(probit_runs, f"pt_{case}_{kind}_{it}.bin"))
+            want = np.fromfile(os.path.join(probit_runs, f"jax_{case}_{kind}_{it}.bin"))
+            assert got.shape == want.shape == (M,)
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("method", ["se", "loo"])
+def test_cli_probit_association_test_matches_jax(probit_runs, method):
+    """association_test --model bin_class (0/1 labels read raw) on the
+    probit eigen run's dumps, through both CLIs."""
+    d = probit_runs
+    gam1 = read_positional_csv(f"{d}/jax_bin_eigen_params.csv")[-1][3]
+    src = {"se": ["--r1-file", f"{d}/jax_bin_eigen_r1_it_6.bin", "--gam1", repr(gam1)],
+           "loo": ["--estimate-file", f"{d}/jax_bin_eigen_it_6.bin"]}[method]
+    for who, main, extra in (("jax", jcli_main, []), ("pt", tcli_main, ["--device", "cpu"])):
+        argv = ["--run-mode", "association_test", "--model", "bin_class", "--pval-method", method,
+                "--meth-file", f"{d}/example.bin", "--phen-file", f"{d}/example_bin.phen",
+                "--N", str(N), "--Mt", str(M), "--out-dir", d, "--out-name", f"{who}_passoc"]
+        assert main(argv + src + extra) in (0, None)
+    g, w = (np.fromfile(f"{d}/{who}_passoc_it_6_pval_{method}.bin") for who in ("pt", "jax"))
+    assert g.shape == (M,) and np.all((g >= 0) & (g <= 1))
+    if method == "se":
+        np.testing.assert_array_equal(g, w)
+    else:
+        np.testing.assert_allclose(np.log10(g + 1e-300), np.log10(w + 1e-300), rtol=1e-9,
+                                   atol=1e-12)
 
 
 # ---------------------------------------------------------------------------

@@ -326,9 +326,28 @@ def test_probe_is_seeded_rademacher(pair):
 
 
 @pytest.mark.parametrize("field,value", [("resume_file", "x.npz"), ("checkpoint_file", "x.npz"),
-                                         ("eigen_cache", "e.npz"), ("C", 2)])
+                                         ("eigen_cache", "e.npz")])
 def test_unported_engine_options_raise(pair, tmp_path, field, value):
     _, tdm = pair
     cfg = RunConfig(**cfg_kw(tmp_path, device="cpu", **{field: value}))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tlin.infere_linear(tdm, np.ones(int(tdm.n)), cfg, write_outputs=False)
+
+
+def test_covariates_run_in_the_engine(fx, pair, tmp_path):
+    """--C 2 with a covariate matrix fits cov_eff once and runs; --C without
+    one runs unadjusted, as the JAX engine does (engine/linear.py:718-727).
+    The JAX comparison is tests/test_torch_probit.py
+    test_linear_covariates_match_jax."""
+    _, tdm = pair
+    n = int(tdm.n)
+    Z = np.random.default_rng(2).normal(size=(n, 2))
+    y = fx.y + Z @ np.array([0.5, 0.5])
+    kw = cfg_kw(tmp_path, device="cpu", lmmse_solver="eigen", iterations=2)
+    res = tlin.infere_linear(tdm, y, RunConfig(**kw, C=2), covariates=Z, write_outputs=False)
+    assert np.all(np.isfinite(res.x1_hat_scaled)) and "cov" in res.setup
+    bare = tlin.infere_linear(tdm, y, RunConfig(**kw, C=2), write_outputs=False)
+    plain = tlin.infere_linear(tdm, y, RunConfig(**kw), write_outputs=False)
+    np.testing.assert_array_equal(bare.x1_hat_scaled, plain.x1_hat_scaled)
+    assert "cov" not in bare.setup
+    assert np.abs(res.x1_hat_scaled - plain.x1_hat_scaled).max() > 1e-4

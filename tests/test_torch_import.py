@@ -29,6 +29,8 @@ import vampomi_tpu_torch.ops.stream, vampomi_tpu_torch.ops.mxu
 import vampomi_tpu_torch.tools.matvec_floor_probe, vampomi_tpu_torch.tools.r4_probe
 import vampomi_tpu_torch.api, vampomi_tpu_torch.ops.moments, vampomi_tpu_torch.modes.association
 import vampomi_tpu_torch.modes.test_mode, vampomi_tpu_torch.modes.predict
+import vampomi_tpu_torch.engine.probit, vampomi_tpu_torch.glm.probit
+import vampomi_tpu_torch.utils.mathx, vampomi_tpu_torch.prior.marginal
 state1 = (str(torch.get_default_dtype()), torch.backends.cuda.matmul.allow_tf32,
           torch.get_float32_matmul_precision())
 added = sorted(set(sys.modules) - before)
@@ -49,7 +51,8 @@ def test_importing_the_port_pulls_in_no_jax():
     for mod in ("engine.linear", "ops.packed4", "ops.broadcast", "ops.atx_int8", "ops.stream",
                 "ops.mxu", "tools", "tools.matvec_floor_probe", "tools.r4_probe", "api",
                 "ops.moments", "ops.spectral", "modes.association", "modes.test_mode",
-                "modes.predict"):
+                "modes.predict", "engine.probit", "glm.probit", "utils.mathx",
+                "prior.marginal"):
         assert f"vampomi_tpu_torch.{mod}" in res["added"], mod
     assert res["same_state"], "importing the port changed global torch state"
 
@@ -76,6 +79,16 @@ def test_cli_device_cuda_without_a_card_raises_before_any_work(monkeypatch, tmp_
     with pytest.raises(RuntimeError, match="--device cpu"):
         tcli_main(["--meth-file", str(tmp_path / "missing.bin"), "--phen-file", "x",
                    "--N", "10", "--Mt", "10", "--out-dir", str(tmp_path)])
+
+
+def test_cli_probit_on_cuda_without_a_card_raises_before_any_work(monkeypatch, tmp_path):
+    """--model bin_class on the default device without a card raises too."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        tcli_main(["--model", "bin_class", "--run-mode", "infere", "--meth-file",
+                   str(tmp_path / "missing.bin"), "--phen-file", "x", "--N", "10", "--Mt", "10",
+                   "--C", "2", "--cov-file", "c", "--out-dir", str(tmp_path)])
+    assert not list(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("compute_dtype,device,want", [

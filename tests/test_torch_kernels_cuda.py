@@ -305,22 +305,37 @@ def test_row_moments_match_plain_bitwise_on_card(cuda_device, kind, shape, offse
                    else (row_moments_packed4, row_moments_packed4_plain))
     before = kern.launches
     got = kern(X)
-    assert got.dtype == torch.int32 and got.shape == (m, 2)
+    assert got.dtype == torch.int64 and got.shape == (m, 2)
     assert torch.equal(got, plain(X))
     assert torch.equal(got, kern(X))
     assert kern.launches == before + 2
 
 
 def test_row_moments_extreme_rows_on_card(cuda_device):
-    """Rows of all -128 at the longest N the int32 squares allow, and packed
-    rows of all -8 codes: the sums at their limits."""
-    X = torch.full((5, 131071), -128, dtype=torch.int8, device=cuda_device)
-    got = row_moments_int8(X).cpu()
-    assert got[:, 0].tolist() == [-128 * 131071] * 5
-    assert got[:, 1].tolist() == [16384 * 131071] * 5
+    """Rows of all -128 past the longest N an int32 sum of squares holds
+    (131,071), on the 16-byte path and on the byte path, and packed rows of
+    all -8 codes: the int64 sums at their extremes."""
+    for n in (131071, 262144, 262147):
+        X = torch.full((5, n), -128, dtype=torch.int8, device=cuda_device)
+        got = row_moments_int8(X).cpu()
+        assert got[:, 0].tolist() == [-128 * n] * 5
+        assert got[:, 1].tolist() == [16384 * n] * 5
     Xp = torch.zeros((5, 4096), dtype=torch.uint8, device=cuda_device)  # nibbles 0: codes -8
     got = row_moments_packed4(Xp).cpu()
     assert got[:, 0].tolist() == [-8 * 8192] * 5 and got[:, 1].tolist() == [64 * 8192] * 5
+
+
+@pytest.mark.parametrize("n", [524288, 600001])
+def test_row_moments_long_rows_match_plain_bitwise_on_card(cuda_device, n):
+    """Random int8 rows longer than an int32 sum of squares allows: the
+    kernel's int64 sums equal the plain version's bit for bit."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(n)
+    X = torch.randint(-128, 128, (7, n), dtype=torch.int8, device=cuda_device, generator=g)
+    got = row_moments_int8(X)
+    assert got.dtype == torch.int64
+    assert torch.equal(got, row_moments_int8_plain(X))
+    assert int(got[:, 1].max()) > 2**31
 
 
 @pytest.mark.parametrize("n", [512, 2048])

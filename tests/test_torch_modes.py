@@ -110,7 +110,7 @@ def test_row_moments_plain_are_the_exact_integer_sums(shape):
     X = rng.integers(-128, 128, size=(m, n), dtype=np.int8)
     got = row_moments_int8(torch.as_tensor(X)).numpy()
     x = X.astype(np.int64)
-    assert got.dtype == np.int32 and got.shape == (m, 2)
+    assert got.dtype == np.int64 and got.shape == (m, 2)
     np.testing.assert_array_equal(got[:, 0], x.sum(axis=1))
     np.testing.assert_array_equal(got[:, 1], (x * x).sum(axis=1))
     codes = rng.integers(-8, 8, size=(m, 2 * n), dtype=np.int8)
@@ -134,10 +134,35 @@ def test_row_moments_plain_chunking_does_not_change_the_sums(monkeypatch):
     assert torch.equal(row_moments_packed4_plain(Xp), want[1])
 
 
+def test_loo_takes_an_int8_design_past_the_int32_sums():
+    """An int8 design of N = 140,000 samples with codes of ±127: its sums of
+    squares (2.26e9) leave int32.  The LOO statistics are the exact integer
+    sums and the p-values lie in [0, 1]."""
+    from vampomi_tpu_torch.dataset import Dataset
+    from vampomi_tpu_torch.io.phen import Phenotype
+
+    rng = np.random.default_rng(9)
+    n, m = 140_000, 3
+    X = np.sign(rng.normal(size=(m, n)))
+    qinfo = {}
+    dm = top.build_design(X, compute_dtype=torch.int8, device="cpu", quant_out=qinfo)
+    y = X[0] * 0.3 + rng.normal(size=n)
+    sumx, sumsqx, xy = tassoc._loo_stats(dm, y)
+    q = dm.X.numpy().astype(np.int64)
+    np.testing.assert_array_equal(sumx, q.sum(axis=1))
+    np.testing.assert_array_equal(sumsqx, (q * q).sum(axis=1))
+    assert sumsqx.min() > 2**31
+    ds = Dataset(dm=dm, phen=Phenotype(y=y, intercept=0.0, scale=1.0), covariates=None,
+                 qscale=qinfo["scale"])
+    for standardized in (False, True):
+        p = tassoc.pvals_loo(ds, np.zeros(m), standardized=standardized)
+        assert p.shape == (m,) and np.all((p >= 0) & (p <= 1)) and p[0] < 1e-12
+
+
 @pytest.mark.parametrize("kind", ["int8", "int4"])
 def test_row_moments_match_jax_loo_sums(files, kind):
     """The code sums of JAX's _loo_stats (f32 sums, exact at N = 300) equal
-    the port's int32 moments of the same codes."""
+    the port's int64 moments of the same codes."""
     jds, tds = _datasets(files, kind)
     y = np.random.default_rng(2).normal(size=N)
     jsx, jsq, _ = (np.asarray(a) for a in jassoc._loo_stats(jds.dm, jnp.asarray(y)))
@@ -147,9 +172,8 @@ def test_row_moments_match_jax_loo_sums(files, kind):
 
 
 def test_row_moments_wrappers_refuse_what_the_kernel_does_not_take():
-    with pytest.raises(ValueError, match="past int32"):
-        row_moments_int8(torch.zeros((1, 131072), dtype=torch.int8))
-    assert row_moments_int8(torch.zeros((1, 131071), dtype=torch.int8)).tolist() == [[0, 0]]
+    """Wrong dtypes and layouts raise; long rows do not (the sums are int64)."""
+    assert row_moments_int8(torch.zeros((1, 131072), dtype=torch.int8)).tolist() == [[0, 0]]
     with pytest.raises(TypeError, match="int8"):
         row_moments_int8(torch.zeros((2, 4), dtype=torch.uint8))
     with pytest.raises(TypeError, match="uint8"):

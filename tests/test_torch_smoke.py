@@ -38,3 +38,24 @@ def test_planted_problem_is_seeded():
     assert np.count_nonzero(a[1]) == 2 and a[2]["probs"][1] == 2 / 2048
     assert a[2]["vars"] == [0.0, 0.8 / 2] and a[2]["h2"] == 0.8
     assert a[0].shape == (256,) and abs(np.var(a[0], ddof=1) - 1.0) < 1e-9
+
+
+@pytest.mark.parametrize("model,c", [("bin_class", 0), ("bin_class", 2), ("linear", 2)])
+def test_parity_problem_is_seeded(model, c):
+    """The parity phase's fixture: 0/1 labels for probit, the read_phen
+    scaling for linear, c covariates; the same seed gives the same data."""
+    fx, y, Z = chip_smoke.parity_problem(300, 128, model, c)
+    fx2, y2, Z2 = chip_smoke.parity_problem(300, 128, model, c)
+    np.testing.assert_array_equal(y, y2)
+    if model == "bin_class":
+        assert set(np.unique(y)) == {0.0, 1.0}
+    else:
+        assert abs(np.sum((y - y.mean()) ** 2) - 127.0) < 1e-9
+    assert (Z is None) == (c == 0) and (Z is None or Z.shape == (128, c))
+
+
+def test_probit_cli_phase_runs_on_the_cpu(tmp_path):
+    """The probit CLI phase at a toy size with --device cpu: every file it
+    checks is written and finite (the card runs it at N = 2,000)."""
+    chip_smoke.phase_cli_probit("cpu", str(tmp_path), n=120, m=300, iters=3)
+    assert (tmp_path / "cli_bin_int8_cg.log").exists()

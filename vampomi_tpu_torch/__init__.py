@@ -10,9 +10,11 @@ sets process-wide JAX options, and the machines with the card have no jax.
 Importing this package has no side effects.  Devices are chosen explicitly
 (`config.resolve_device`); there is no global default dtype.
 
-Ported so far: the single-device linear `--run-mode infere` over f64, f32 and
-int8 designs with the `cg` and `eigen` LMMSE solvers (see ROADMAP.md for the
-rest).
+Ported so far, on one device: linear and probit `--run-mode infere`, with
+covariates, over f64, f32, int8 and packed-int4 designs with the `cg`,
+`spectral` and `eigen` LMMSE solvers; the `test`, `association_test` and
+`predict` run modes; the array API (`api.py`); the two matvec probe tools.
+ROADMAP.md lists the rest.
 """
 
 __version__ = "0.1.0"

@@ -5,8 +5,8 @@ The CLI (cli.py) is the flag-for-flag reference surface; this module is the
 library entry point for users whose design matrix and phenotype are already
 numpy arrays — no .bin/.phen files, no output directory.  It wraps the same
 engine code the CLI drives (ops/operator.build_design →
-engine/linear.infere_linear), so every number matches a file-driven run at
-the same configuration and seed:
+engine/linear.infere_linear or engine/probit.infere_bin_class), so every
+number matches a file-driven run at the same configuration and seed:
 
     import vampomi_tpu_torch.api as va
     fit = va.fit_linear(X, y, iterations=10, h2=0.8,
@@ -15,6 +15,8 @@ the same configuration and seed:
     va.h2_estimate(fit)        # 1 - 1/gamma_w (reference scripts/metrics.py:134)
     p = va.association_pvals(fit, n=X.shape[0])       # SE p-values, in memory
     yhat = va.predict_linear(fit, X_new)              # out-of-sample score
+    pfit = va.fit_probit(X, y01, iterations=10)       # binary trait, 0/1 labels
+    labels = va.predict_probit(pfit, X_new)           # Phi(z) >= 0.5
 
 Where the JAX package takes `mesh=`, this takes `device=` ("cuda" by
 default; it raises without a card, and never runs on the CPU instead).
@@ -23,7 +25,8 @@ Conventions (the reference's): `X` is sample-major (N, M) like sklearn, or
 marker-major (M, N) with marker_major=True; linear `y` is scaled by 1/sd but
 NOT centered (src/data.cpp:88-103); returned effects are in "file units"
 (x1_hat / sqrt(N), src/vamp.cpp:237-239), what the `_it_<k>.bin` dumps hold.
-The probit entry points wait for the probit engine (ROADMAP.md).
+Covariates are the z-scored (N, C) matrix, fitted once by the probit Newton
+step (src/vamp_probit.cpp:525-617) for either model.
 """
 
 from __future__ import annotations
@@ -36,12 +39,15 @@ import torch
 
 from .config import RunConfig, resolve_device
 from .engine.linear import LinearResult, infere_linear
+from .engine.probit import ProbitResult, infere_bin_class
 from .modes.association import pvals_se
 from .ops.operator import DesignMatrix, ax, build_design
+from .utils.mathx import normal_cdf
 
 __all__ = [
     "fit_linear", "fit_probit", "predict_linear", "predict_probit",
     "association_pvals", "h2_estimate", "standardize_phenotype", "LinearResult",
+    "ProbitResult",
 ]
 
 
@@ -64,7 +70,7 @@ def standardize_phenotype(y) -> tuple[np.ndarray, float]:
     return y * sqn, sqn
 
 
-def _make_config(n: int, mt: int, device: str, config: dict) -> RunConfig:
+def _make_config(n: int, mt: int, model: str, device: str, config: dict) -> RunConfig:
     cfg = RunConfig()
     # meth_file is the CLI's mandatory flag (cfg.check()); the API feeds
     # arrays directly, so mark the source for error messages only
@@ -74,7 +80,7 @@ def _make_config(n: int, mt: int, device: str, config: dict) -> RunConfig:
             raise TypeError(f"unknown configuration field {k!r} "
                             f"(see vampomi_tpu_torch.config.RunConfig)")
         setattr(cfg, k, list(v) if isinstance(v, tuple) else v)
-    cfg.N, cfg.Mt, cfg.model, cfg.device = n, mt, "linear", str(device)
+    cfg.N, cfg.Mt, cfg.model, cfg.device = n, mt, model, str(device)
     return cfg
 
 
@@ -102,15 +108,16 @@ def fit_linear(
     phenotype.  `config` kwargs are RunConfig fields (iterations, h2, probs,
     vars, rho, compute_dtype, lmmse_solver, seed, ...).  No files are
     written.  `quiet` suppresses the engine's reference-style narration.
-    Covariates are not ported yet: the engine raises naming ROADMAP.md.
-    Returns the engine LinearResult (x1_hat_scaled in file units)."""
+    `covariates` (with config C > 0) are fitted once and taken out of y
+    (src/vamp.cpp:153-169).  Returns the engine LinearResult (x1_hat_scaled
+    in file units)."""
     Xm = _marker_major(X, marker_major)
     y = np.asarray(y, dtype=np.float64).ravel()
     if y.size != Xm.shape[1]:
         raise ValueError(f"y has {y.size} samples but X has {Xm.shape[1]}")
     if standardize_y:
         y, _ = standardize_phenotype(y)
-    cfg = _make_config(y.size, Xm.shape[0], device, config)
+    cfg = _make_config(y.size, Xm.shape[0], "linear", device, config)
     dm = _build(Xm, device, cfg)
     sink = io.StringIO() if quiet else None
     with contextlib.redirect_stdout(sink) if sink else contextlib.nullcontext():
@@ -123,8 +130,46 @@ def fit_linear(
         )
 
 
+def fit_probit(
+    X,
+    y,
+    *,
+    marker_major: bool = False,
+    device: str = "cuda",
+    true_signal=None,
+    x1hat_init=None,
+    covariates=None,
+    quiet: bool = False,
+    **config,
+) -> ProbitResult:
+    """Probit GLM-VAMP (binary classification) on in-memory arrays.
+
+    y must be 0/1 (used raw — the reference never standardizes the probit
+    phenotype, src/data.cpp:40-43).  Covariates, if given (with config
+    C > 0), are the z-scored (N, C) matrix and are fit by the one-time
+    Newton step (src/vamp_probit.cpp:525-617)."""
+    Xm = _marker_major(X, marker_major)
+    y = np.asarray(y, dtype=np.float64).ravel()
+    if y.size != Xm.shape[1]:
+        raise ValueError(f"y has {y.size} samples but X has {Xm.shape[1]}")
+    bad = ~np.isin(y, (0.0, 1.0))
+    if bad.any():
+        raise ValueError(f"probit y must be 0/1 (found {y[bad][:3]} ...)")
+    cfg = _make_config(y.size, Xm.shape[0], "bin_class", device, config)
+    dm = _build(Xm, device, cfg)
+    sink = io.StringIO() if quiet else None
+    with contextlib.redirect_stdout(sink) if sink else contextlib.nullcontext():
+        return infere_bin_class(
+            dm, y, cfg,
+            true_signal=None if true_signal is None else np.asarray(true_signal, dtype=np.float64),
+            x1hat_init=None if x1hat_init is None else np.asarray(x1hat_init, dtype=np.float64),
+            covariates=None if covariates is None else np.asarray(covariates, dtype=np.float64),
+            write_outputs=False,
+        )
+
+
 def _beta_of(fit) -> np.ndarray:
-    if isinstance(fit, LinearResult):
+    if isinstance(fit, (LinearResult, ProbitResult)):
         return np.asarray(fit.x1_hat_scaled, dtype=np.float64)
     return np.asarray(fit, dtype=np.float64).ravel()
 
@@ -179,13 +224,27 @@ def h2_estimate(fit: LinearResult) -> float:
     return 1.0 - 1.0 / float(fit.gamw)
 
 
-def fit_probit(*args, **kwargs):
-    """Probit GLM-VAMP: not ported yet (ROADMAP.md, the probit slice)."""
-    raise NotImplementedError("fit_probit: the probit engine is not ported yet "
-                              "(see ROADMAP.md); use vampomi_tpu.api meanwhile")
+def predict_probit(
+    fit,
+    X_new,
+    *,
+    marker_major: bool = False,
+    device: str = "cuda",
+    compute_dtype: str = "auto",
+    covariates=None,
+    return_proba: bool = False,
+) -> np.ndarray:
+    """Probit prediction on new samples.
 
-
-def predict_probit(*args, **kwargs):
-    """Probit prediction: not ported yet (ROADMAP.md, the probit slice)."""
-    raise NotImplementedError("predict_probit: not ported yet with the probit engine "
-                              "(see ROADMAP.md); use vampomi_tpu.api meanwhile")
+    Default: 0/1 class labels via Phi(z) >= 0.5 — the reference's test-mode
+    decision rule (src/main_meth_probit.cpp:160-199).  return_proba=True
+    returns Phi(z + Z @ cov_eff) instead.  Covariate effects ride along when
+    `fit` is a ProbitResult with cov_eff and `covariates` is given."""
+    z = predict_linear(fit, X_new, marker_major=marker_major, device=device,
+                       compute_dtype=compute_dtype)
+    if (covariates is not None and isinstance(fit, ProbitResult)
+            and fit.cov_eff is not None):
+        z = z + np.asarray(covariates, dtype=np.float64) @ np.asarray(
+            fit.cov_eff, dtype=np.float64)
+    proba = normal_cdf(torch.as_tensor(z)).numpy()
+    return proba if return_proba else (proba >= 0.5).astype(np.int64)

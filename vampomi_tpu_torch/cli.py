@@ -2,13 +2,15 @@
 (vampomi_tpu/cli.py:21-120, flag-compatible with the reference) plus
 `--device {cuda,cpu}`.
 
-Ported: `--run-mode infere --model linear` with the cg, spectral and eigen
-LMMSE solvers (auto picks as the JAX package does) over f64, f32, int8 and
-packed-int4 (`--compute-dtype int4`) designs; `--run-mode test` and
-`predict` for both models (their probit branches need only the estimates);
-`--run-mode association_test` (`--pval-method se | loo | loo_std`) for the
-linear model.  Every other mode, model and the flags below exit with a
-message naming ROADMAP.md; none is replaced by other behaviour.
+Ported: `--run-mode infere` for both models (`--model linear` and
+`--model bin_class`, with covariates through `--C` and `--cov-file`) with
+the cg, spectral and eigen LMMSE solvers (auto picks as the JAX package
+does) over f64, f32, int8 and packed-int4 (`--compute-dtype int4`) designs;
+`--run-mode test` and `predict` for both models; `--run-mode
+association_test` (`--pval-method se | loo | loo_std`), which does not
+depend on the model.  Checkpoint/resume, the eigen cache, `--init-conf`,
+`--profile-dir` and bf16 exit with a message naming ROADMAP.md; none is
+replaced by other behaviour.
 
     python -m vampomi_tpu_torch.cli --device cuda --meth-file x.bin ...
 """
@@ -135,15 +137,9 @@ def parse_config(argv: list[str]) -> RunConfig:
 
 
 def _reject_unported(cfg: RunConfig, init_conf: str) -> None:
-    """SystemExit naming ROADMAP.md for every mode, model and flag the
+    """SystemExit naming ROADMAP.md for every flag and compute dtype the
     port does not run yet."""
     bad = []
-    # the probit engine is a later slice; test and predict need only its
-    # estimates
-    if cfg.model != "linear" and cfg.run_mode not in ("test", "predict"):
-        bad.append(f"--model {cfg.model} with --run-mode {cfg.run_mode}")
-    if cfg.C > 0:
-        bad.append("--C > 0 (covariates)")
     for flag, val in (("--resume-file", cfg.resume_file),
                       ("--checkpoint-file", cfg.checkpoint_file),
                       ("--eigen-cache", cfg.eigen_cache),
@@ -160,7 +156,8 @@ def _reject_unported(cfg: RunConfig, init_conf: str) -> None:
 
 
 def main(argv: list[str] | None = None) -> int:
-    """Dispatch the run mode as vampomi_tpu/cli.py:199-254 does: infere and
+    """Dispatch the run mode as vampomi_tpu/cli.py:199-254 does: infere
+    (with the covariates of `--cov-file` when `--C` > 0) and
     association_test load the training split, test and predict the test
     split (`--meth-file-test`, `--phen-file-test`, `--N-test`)."""
     cfg = parse_config(sys.argv[1:] if argv is None else argv)
@@ -169,7 +166,11 @@ def main(argv: list[str] | None = None) -> int:
 
     from .dataset import load_dataset
 
-    if cfg.run_mode in ("infere", "association_test"):
+    if cfg.run_mode == "infere":
+        ds = load_dataset(cfg.meth_file, cfg.phen_file, cfg.N, cfg.Mt, cfg.model,
+                          dtype, device, alpha_scale=cfg.alpha_scale,
+                          cov_file=cfg.cov_file, c=cfg.C)
+    elif cfg.run_mode == "association_test":
         ds = load_dataset(cfg.meth_file, cfg.phen_file, cfg.N, cfg.Mt, cfg.model,
                           dtype, device, alpha_scale=cfg.alpha_scale)
     else:
@@ -177,14 +178,17 @@ def main(argv: list[str] | None = None) -> int:
                           cfg.model, dtype, device, alpha_scale=cfg.alpha_scale)
 
     if cfg.run_mode == "infere":
-        from .engine.linear import infere_linear
         from .io.bin_io import read_bin_slab
 
         true_signal = (read_bin_slab(cfg.true_signal_file, cfg.Mt)
                        if cfg.true_signal_file else None)
         x1hat_init = (read_bin_slab(cfg.estimate_file, cfg.Mt)
                       if cfg.estimate_file else None)
-        infere_linear(ds.dm, ds.phen.y, cfg, true_signal, x1hat_init)
+        if cfg.model == "bin_class":
+            from .engine.probit import infere_bin_class as infere
+        else:
+            from .engine.linear import infere_linear as infere
+        infere(ds.dm, ds.phen.y, cfg, true_signal, x1hat_init, covariates=ds.covariates)
     elif cfg.run_mode == "test":
         from .modes.test_mode import run_test_linear, run_test_probit
 

@@ -1,1 +1,1 @@
-"""The linear gVAMP engine and its metrics."""
+"""The linear and probit gVAMP engines and their metrics."""

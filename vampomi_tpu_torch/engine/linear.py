@@ -29,8 +29,11 @@ Scaling conventions (must match the reference to reproduce its numbers):
 
 The solver is chosen with the JAX engine's rule (`choose_lmmse_solver`), and
 the eigen solver falls back to spectral where the JAX engine's does (eigen
-residual above tolerance, eigen build over budget).  Not ported yet
-(ROADMAP.md): checkpoint/resume, the eigen cache and covariates.
+residual above tolerance, eigen build over budget).  Covariates (--C > 0)
+are fitted once before the loop by the probit Newton solver
+(glm/probit.newton_method_cov, as src/vamp.cpp:153-169 does) and taken out
+of y for the constant A^T y; gamw and the metrics keep the raw y.  Not
+ported yet (ROADMAP.md): checkpoint/resume and the eigen cache.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ import numpy as np
 import torch
 
 from ..config import RunConfig
+from ..glm.probit import newton_method_cov
 from ..io.bin_io import HostStager, iteration_file, write_marker_file
 from ..io.csv_writer import PositionalCSV
 from ..ops.cg import cg_solve
@@ -88,7 +92,7 @@ class LinearResult(NamedTuple):
     r1_scaled: np.ndarray | None = None
     iter_seconds: list | None = None
     # wall seconds of the once-per-run setup, and the eigen residual:
-    # {"aty", "gram", "eigh", "eigen_resid"} as far as the solver ran them
+    # {"cov", "aty", "gram", "eigh", "eigen_resid"} as far as the run needed them
     setup: dict | None = None
     # the LMMSE solver that ran: auto resolved, after the eigen fallbacks
     solver: str | None = None
@@ -429,6 +433,64 @@ def _sync(dev: torch.device):
         torch.cuda.synchronize(dev)
 
 
+def build_lmmse_factor(dm: DesignMatrix, cfg: RunConfig, solver: str, setup: dict):
+    """The once-per-run state of an exact LMMSE solver: the Gram factor K
+    (spectral) or K's eigenbasis (eigen), with the JAX engines' fallbacks
+    from eigen to the per-iteration spectral solver (eigen build over
+    budget, eigen residual above tolerance; JAX engine/linear.py:792-806,
+    engine/probit.py:416-431) and their log lines.  Returns (the solver
+    that runs, its GramFactor, EigenFactor or None for cg); the wall seconds
+    go to `setup` ("gram", "eigh") with the eigen residual."""
+    if solver == "cg":
+        return solver, None
+    t_fac = time.time()
+    fac = build_spectral(dm)
+    _sync(dm.device)
+    setup["gram"] = time.time() - t_fac
+    _log(f"spectral LMMSE factor built in {setup['gram']:.3f}s "
+         f"(N={int(dm.n)}; exact solves + exact Onsager from here on)")
+    if solver == "spectral":
+        return solver, fac
+    t_eig = time.time()
+    ef, eig_diag = build_eigen_budgeted(fac, cfg)
+    if ef is None:
+        return "spectral", fac
+    setup["eigh"] = time.time() - t_eig
+    setup["eigen_resid"] = eig_diag["resid"]
+    _log(f"eigenbasis of K built in {setup['eigh']:.3f}s "
+         f"(residual {eig_diag['resid']:.2e}, "
+         f"orthogonality {eig_diag['ortho']:.2e}, torch.linalg.eigh f64)")
+    if eig_diag["resid"] > EIGEN_RESID_TOL:
+        _log("eigen residual above tolerance — falling back "
+             "to the per-iteration factor path")
+        return "spectral", fac
+    return solver, ef  # the eigenbasis replaces K
+
+
+def open_csvs(cfg: RunConfig) -> tuple[PositionalCSV, PositionalCSV, PositionalCSV]:
+    """The per-iteration metrics, params and prior CSVs of a run (the
+    reference's headers; the probit engine writes its own rows under them)."""
+    prior_header = (
+        ["iteration", "number of components"]
+        + [f"prob{i}" for i in range(len(cfg.probs))]
+        + [f"var{i}" for i in range(len(cfg.vars))]
+    )
+    base = f"{cfg.out_dir}/{cfg.out_name}"
+    return (PositionalCSV(base + "_metrics.csv", METRICS_HEADER),
+            PositionalCSV(base + "_params.csv", PARAMS_HEADER),
+            PositionalCSV(base + "_prior.csv", prior_header))
+
+
+def dump_iteration(cfg: RunConfig, mt: int, sqrt_n: float, k: int, copy) -> None:
+    """The per-iteration artifacts (src/vamp.cpp:234-252): x1_hat/sqrt(N)
+    and the r1 denoised in iteration k, from a HostStager copy; run on the
+    IO thread."""
+    x1_host, r1_host = copy.wait()
+    write_marker_file(iteration_file(cfg.out_dir, cfg.out_name, k), x1_host, mt, sqrt_n)
+    write_marker_file(iteration_file(cfg.out_dir, cfg.out_name, k, kind="r1_"),
+                      r1_host, mt, sqrt_n)
+
+
 def infere_linear(
     dm: DesignMatrix,
     y: np.ndarray,
@@ -444,8 +506,6 @@ def infere_linear(
         ("--resume-file", cfg.resume_file),
         ("--checkpoint-file", cfg.checkpoint_file),
         ("--eigen-cache", cfg.eigen_cache),
-        ("covariates (--C > 0)", cfg.C > 0 or (
-            covariates is not None and covariates.shape[1] > 0)),
     ) if on]
     if not_ported:
         raise NotImplementedError(
@@ -473,6 +533,7 @@ def infere_linear(
     r1 = init_vec
 
     y_raw = torch.as_tensor(np.asarray(y, dtype=np.float64)).to(device=dev, dtype=wd)
+    y_adj = y_raw
 
     prior = init_prior(cfg.probs, cfg.vars, N, device=dev)
     gam1 = f64(float(cfg.gam1), dev)
@@ -482,17 +543,8 @@ def infere_linear(
     gen = torch.Generator(device="cpu")
     gen.manual_seed(int(cfg.seed))
 
-    out_params = out_metrics = out_prior = None
     if write_outputs:
-        prior_header = (
-            ["iteration", "number of components"]
-            + [f"prob{i}" for i in range(len(cfg.probs))]
-            + [f"var{i}" for i in range(len(cfg.vars))]
-        )
-        base = f"{cfg.out_dir}/{cfg.out_name}"
-        out_metrics = PositionalCSV(base + "_metrics.csv", METRICS_HEADER)
-        out_params = PositionalCSV(base + "_params.csv", PARAMS_HEADER)
-        out_prior = PositionalCSV(base + "_prior.csv", prior_header)
+        out_metrics, out_params, out_prior = open_csvs(cfg)
 
     solver = choose_lmmse_solver(cfg, Mt, N)
     if solver not in ("cg", "eigen", "spectral"):
@@ -500,37 +552,21 @@ def infere_linear(
     warn_em_stability(cfg, Mt, N)
 
     setup = {}
-    fac = ef = None
+    # covariate adjustment, once (src/vamp.cpp:153-169; JAX engine/linear.py:718-727)
+    if cfg.C > 0 and covariates is not None and covariates.shape[1] > 0:
+        t_cov = time.time()
+        cov_eff = newton_method_cov(
+            np.asarray(y), np.zeros(N), covariates, np.zeros(cfg.C),
+            probit_var=cfg.probit_var, verbosity=cfg.verbosity,
+        )
+        y_adj = torch.as_tensor(np.asarray(y) - covariates @ cov_eff).to(device=dev, dtype=wd)
+        setup["cov"] = time.time() - t_cov
+
     t_aty = time.time()
-    aty_adj = atx(dm, y_raw)  # constant across iterations (no covariates yet)
+    aty_adj = atx(dm, y_adj)  # constant across iterations
     _sync(dev)
     setup["aty"] = time.time() - t_aty
-    if solver in ("spectral", "eigen"):
-        t_fac = time.time()
-        fac = build_spectral(dm)
-        _sync(dev)
-        setup["gram"] = time.time() - t_fac
-        _log(f"spectral LMMSE factor built in {setup['gram']:.3f}s "
-             f"(N={N}; exact solves + exact Onsager from here on)")
-    if solver == "eigen":
-        # both fallbacks to the per-iteration spectral solver are the JAX
-        # engine's own (engine/linear.py:792-806), with its log lines
-        t_eig = time.time()
-        ef, eig_diag = build_eigen_budgeted(fac, cfg)
-        if ef is None:
-            solver = "spectral"
-        else:
-            setup["eigh"] = time.time() - t_eig
-            setup["eigen_resid"] = eig_diag["resid"]
-            _log(f"eigenbasis of K built in {setup['eigh']:.3f}s "
-                 f"(residual {eig_diag['resid']:.2e}, "
-                 f"orthogonality {eig_diag['ortho']:.2e}, torch.linalg.eigh f64)")
-            if eig_diag["resid"] > EIGEN_RESID_TOL:
-                _log("eigen residual above tolerance — falling back "
-                     "to the per-iteration factor path")
-                solver, ef = "spectral", None
-            else:
-                fac = None  # the eigenbasis replaces K
+    solver, fac = build_lmmse_factor(dm, cfg, solver, setup)
 
     tracer = Tracer(
         path=(f"{cfg.out_dir}/{cfg.out_name}_trace.jsonl"
@@ -547,14 +583,6 @@ def infere_linear(
     # writes on the IO thread
     writer = AsyncWriter()
     stager = HostStager(dev)
-
-    def _dump_iteration(k, copy):
-        x1_host, r1_host = copy.wait()
-        write_marker_file(
-            iteration_file(cfg.out_dir, cfg.out_name, k), x1_host, Mt, sqrt_n)
-        write_marker_file(
-            iteration_file(cfg.out_dir, cfg.out_name, k, kind="r1_"),
-            r1_host, Mt, sqrt_n)
 
     metrics_history = []
     it_done = 0
@@ -577,7 +605,7 @@ def infere_linear(
             r1_in = r1  # the r1 this iteration denoises; dumped to _r1_it_<k>.bin
             if solver == "eigen":
                 out = _iteration_phase_eigen(
-                    dm, ef, aty_adj, y_raw, r1, gam1, prior, x1_prev,
+                    dm, fac, aty_adj, y_raw, r1, gam1, prior, x1_prev,
                     it > 1, rho, gamw, ts,
                 )
             elif solver == "spectral":
@@ -619,7 +647,8 @@ def infere_linear(
             # per-iteration artifacts (src/vamp.cpp:234-252): x1_hat/sqrt(N)
             # and the r1 denoised this iteration, written on the IO thread
             if write_outputs:
-                writer.submit(_dump_iteration, it, stager.copy((x1_hat, r1_in)))
+                writer.submit(dump_iteration, cfg, Mt, sqrt_n, it,
+                              stager.copy((x1_hat, r1_in)))
 
             metrics_history.append(metrics)
             params_row = [alpha1_h, gam1_denoise, alpha2_h, gam2_h, gamw_h]

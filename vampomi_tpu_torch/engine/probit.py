@@ -1,0 +1,406 @@
+"""Probit (binary classification) GLM-VAMP engine (port of
+vampomi_tpu/engine/probit.py; reference `vamp::infere_bin_class`,
+src/vamp_probit.cpp:19-467).  Four half-steps an iteration over the pair
+(x, z = A x):
+
+  1. denoise x with the spike+mixture prior (g1/g1d, as in the linear model),
+     with rho-damping applied to BOTH x1_hat and alpha1 for it > 1
+     (src/vamp_probit.cpp:160-165);
+  2. denoise z with the probit-likelihood posterior (g1_bin_class) and form
+     the extrinsic pair (p2, tau2) (src/vamp_probit.cpp:213-253);
+  3. LMMSE x: (tau2 A^T A + gam2 I) x = tau2 A^T p2 + gam2 r2, by CG from a
+     zero start every iteration (src/vamp_probit.cpp:300-311) with the
+     Hutchinson Onsager alpha2, or exactly (spectral, eigen) with alpha2 in
+     closed form;
+  4. LMMSE z: z2 = A x2, beta2 = (Mt/N)(1 - alpha2), extrinsic (p1, tau1)
+     (src/vamp_probit.cpp:352-376).
+
+X passes an iteration: the exact solvers read X three times (atx of p2, one
+two-column ax_batch for z1_pred and A v, atx of S^{-1} A v); z2 is the
+push-through q.  CG reads it for atx of p2, ax of x1, two a step, and ax of
+x2.
+
+As in the linear engine, the phases run eagerly and each iteration's O(1)
+outputs reach the host in ONE batched copy, which is also the iteration's
+synchronisation point.
+
+Faithful quirks: eta1 uses the UNdamped alpha1 (src/vamp_probit.cpp:130)
+while r2 uses the damped x1_hat; g1 runs with the PREVIOUS iteration's prior
+(EM runs after the phase, on the r1 it consumed, src/vamp_probit.cpp:113,139
+— not on --learn-prior-delay's schedule); beta1 >= N is clamped to N - 1;
+the prior CSV row stores the internally-scaled (×N) variances
+(src/vamp_probit.cpp:427-428); the params CSV has 8 values under the 6-name
+linear header (src/vamp.cpp:72-77 + vamp_probit.cpp:22).
+
+Random draws come from one CPU torch.Generator seeded with --seed: the
+initial p1 ~ N(0, 1)^N first (src/vamp_probit.cpp:53), then one Rademacher
+probe an iteration, drawn whether or not the solver uses it, as the JAX
+engine splits its key.  One seed gives the same draws on the CPU and on a
+card.  Not ported (ROADMAP.md): checkpoint/resume and the eigen cache; the
+JAX engine's compile-ahead threads are a TPU workaround with no counterpart.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import RunConfig
+from ..glm.probit import g1_bin_class, g1d_bin_class, newton_method_cov
+from ..io.bin_io import HostStager
+from ..ops.cg import cg_solve
+from ..ops.eigen import eigen_solve, eigen_traces
+from ..ops.operator import PACKED4_DTYPE, DesignMatrix, atx, ax, ax_batch, f64
+from ..ops.spectral import shift_inverse, spectral_solve, spectral_traces
+from ..prior.mixture import MixturePrior, g1, g1d, init_prior
+from ..utils.async_writer import AsyncWriter
+from ..utils.mathx import normal_cdf
+from ..utils.telemetry import Tracer
+from .linear import (
+    _clamp, _draw_probe, _em_phase, _log, _nmse, build_lmmse_factor, choose_lmmse_solver,
+    dump_iteration, open_csvs, warn_em_stability,
+)
+from .metrics import _corr, confusion_counts
+
+
+class ProbitResult(NamedTuple):
+    x1_hat_scaled: np.ndarray   # (Mt,) estimate in file units (x1_hat/sqrt(N))
+    iterations_run: int
+    gam1: float
+    tau1: float
+    cov_eff: np.ndarray | None
+    probs: np.ndarray
+    vars: np.ndarray            # internal (×N) scale
+    metrics_history: list
+    # final denoiser-input extrinsic in file units (r1/sqrt(N)); see
+    # engine/linear.py LinearResult for the (r1, gam1) pairing
+    r1_scaled: np.ndarray | None = None
+    iter_seconds: list | None = None
+    # wall seconds of the once-per-run setup, and the eigen residual:
+    # {"cov", "gram", "eigh", "eigen_resid"} as far as the run needed them
+    setup: dict | None = None
+    # the LMMSE solver that ran: auto resolved, after the eigen fallbacks
+    solver: str | None = None
+
+
+def _probit_phase(
+    dm: DesignMatrix,
+    y,                # 0/1 labels (N,)
+    m_cov,            # covariate offsets Z @ cov_eff (N,)
+    r1, r2, p1, p2,
+    gam1, tau1, alpha1_prev,
+    prior: MixturePrior,
+    x1_hat_prev,
+    damp: bool,       # apply rho-damping (it > 1)
+    rho, probit_var,
+    bern,             # Rademacher probe, +-1/sqrt(Mt) (CG only)
+    true_signal_scaled,   # sqrt(N) * beta
+    cg_max_iter, cg_err_tol,
+    fac=None,         # GramFactor (spectral) or EigenFactor (eigen)
+    solver: str = "cg",
+    debug: bool = False,  # --verbosity 1 per-CG-iteration prints
+) -> dict:
+    """One probit GLM-VAMP iteration (JAX engine/probit.py:76-231).  M/N
+    vectors in the work dtype; scalars f64."""
+    wd = dm.wd
+    dev = dm.device
+    c = lambda s: f64(s, dev).to(wd)  # noqa: E731 — scalar → work dtype
+    gam1 = f64(gam1, dev)
+    tau1 = f64(tau1, dev)
+    alpha1_prev = f64(alpha1_prev, dev)
+    r1, r2, p1, p2 = (t.to(wd) for t in (r1, r2, p1, p2))
+    y = y.to(wd)
+    m_cov = m_cov.to(wd)
+    x1_hat_prev = x1_hat_prev.to(wd)
+    ts = true_signal_scaled.to(wd)
+    inv_sqrt_n = c(1.0 / math.sqrt(dm.n))
+
+    # ---------- denoise x (src/vamp_probit.cpp:97-165) ----------
+    x1_new = g1(r1, gam1, prior)
+    alpha1_new = (g1d(r1, gam1, prior) * dm.mmask).sum().to(torch.float64) / dm.mt
+    eta1 = gam1 / alpha1_new  # uses UNdamped alpha1 (line 130)
+    if damp:
+        x1_hat = c(rho) * x1_new + c(1.0 - rho) * x1_hat_prev
+        alpha1 = rho * alpha1_new + (1.0 - rho) * alpha1_prev
+    else:
+        x1_hat, alpha1 = x1_new, alpha1_new
+
+    x1_corr = _corr(x1_hat, ts).to(torch.float64)
+
+    gam2 = _clamp(eta1 - gam1)
+    r2_new = (c(eta1) * x1_hat - c(gam1) * r1) / c(gam2)
+
+    # ---------- denoise z (src/vamp_probit.cpp:200-253) ----------
+    z1_hat = g1_bin_class(p1, c(tau1), y, m_cov, c(probit_var))
+    beta1 = g1d_bin_class(p1, c(tau1), y, m_cov, c(probit_var)).sum().to(torch.float64)
+    beta1 = torch.where(beta1 >= dm.n, dm.n - 1.0, beta1) / dm.n
+    p2_new = (z1_hat - c(beta1) * p1) / c(1.0 - beta1)
+    tau2 = tau1 * (1.0 - beta1) / beta1
+
+    # ---------- LMMSE x (src/vamp_probit.cpp:291-346) ----------
+    v = c(tau2) * atx(dm, p2_new) + c(gam2) * r2_new
+    cg_iters = 0
+    if solver in ("eigen", "spectral"):
+        # z1_pred (the denoising metrics, src/vamp_probit.cpp:269-287) shares
+        # the A-pass with A v; z2_hat = A x2_hat is the push-through q
+        Z = ax_batch(dm, torch.stack([x1_hat * inv_sqrt_n, v], dim=1))
+        z1_pred = Z[:, 0]
+        av = Z[:, 1]
+        if solver == "eigen":
+            x2_hat, z2_hat = eigen_solve(dm, fac, v, tau2, gam2, av=av)
+            tr_qinv, _ = eigen_traces(fac, dm.mt, tau2, gam2)
+        else:
+            winv = shift_inverse(fac, tau2, gam2)
+            x2_hat, z2_hat = spectral_solve(dm, fac, v, tau2, gam2, av=av, winv=winv)
+            tr_qinv, _ = spectral_traces(fac, dm.mt, tau2, gam2, winv=winv)
+        alpha2 = gam2 * tr_qinv / dm.mt
+    elif solver == "cg":
+        z1_pred = ax(dm, x1_hat * inv_sqrt_n)
+        V = torch.stack([v, bern.to(wd)], dim=1)
+        res = cg_solve(
+            dm, V, torch.zeros_like(V), tau2, gam2,  # from zero every iteration
+            max_iter=int(cg_max_iter), tol=float(cg_err_tol),
+            onsager_cols=torch.tensor([False, True], device=dev),
+            debug=debug,
+        )
+        x2_hat = res.mu[:, 0]
+        invq_bern = res.mu[:, 1]
+        alpha2 = gam2 * torch.dot(bern.to(wd), invq_bern).to(torch.float64)
+        z2_hat = ax(dm, x2_hat)
+        cg_iters = res.iters
+    else:
+        raise ValueError(f"unknown LMMSE solver {solver!r}")
+
+    # metrics, denoising half (src/vamp_probit.cpp:269-287)
+    y1_hat = (normal_cdf(z1_pred) >= 0.5).to(wd)
+    tp1, tn1, fp1, fn1 = confusion_counts(y, y1_hat)
+    acc1 = (tp1 + tn1).to(torch.float64) / dm.n
+
+    x2_corr = _corr(x2_hat, ts).to(torch.float64)
+
+    r1_new = (x2_hat - c(alpha2) * r2_new) / c(1.0 - alpha2)
+    gam1_new = _clamp(gam2 * (1.0 - alpha2) / alpha2)
+
+    # ---------- LMMSE z (src/vamp_probit.cpp:351-376) ----------
+    beta2 = dm.mt / dm.n * (1.0 - alpha2)
+    p1_new = (z2_hat - c(beta2) * p2_new) / c(1.0 - beta2)
+    tau1_new = _clamp(tau2 * (1.0 - beta2) / beta2)
+
+    # metrics, LMMSE half (src/vamp_probit.cpp:402-420); the reference
+    # recomputes Ax at x2/sqrt(N) — algebraically z2_hat * inv_sqrt_n
+    y2_hat = (normal_cdf(z2_hat * inv_sqrt_n) >= 0.5).to(wd)
+    tp2, tn2, fp2, fn2 = confusion_counts(y, y2_hat)
+    acc2 = (tp2 + tn2).to(torch.float64) / dm.n
+
+    counts = [t.to(torch.float64) for t in (tp1, tn1, fp1, fn1, tp2, tn2, fp2, fn2)]
+    metrics = torch.stack(counts[:4] + [acc1, x1_corr] + counts[4:] + [acc2, x2_corr])
+    params = torch.stack([alpha1, beta1, gam1, tau1, alpha2, beta2, gam2, tau2])
+
+    return dict(
+        nmse=_nmse(x1_hat, x1_hat_prev),
+        x1_hat=x1_hat, alpha1=alpha1, gam2=gam2, r2=r2_new,
+        x2_hat=x2_hat, alpha2=alpha2, r1=r1_new, gam1=gam1_new,
+        p1=p1_new, p2=p2_new, tau1=tau1_new, tau2=tau2,
+        z1_hat=z1_hat, metrics=metrics, params=params, cg_iters=cg_iters,
+    )
+
+
+def _draw_p1(gen: torch.Generator, n: int, wd: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """The initial z-extrinsic p1 ~ N(0, 1)^N (src/vamp_probit.cpp:53):
+    drawn in f64 from the run's CPU generator, then cast and copied to the
+    run's device, so one seed gives the same p1 on the CPU and on a card."""
+    return torch.randn(n, generator=gen, dtype=torch.float64).to(device=dev, dtype=wd)
+
+
+def _skip_probe(gen: torch.Generator, dm: DesignMatrix) -> None:
+    """Advance the generator past the probe an exact solver does not use,
+    so the draw sequence stays one probe an iteration (the same random
+    numbers `_draw_probe` consumes, nothing copied to the device)."""
+    torch.randint(0, 2, (dm.m_pad,), generator=gen)
+
+
+def infere_bin_class(
+    dm: DesignMatrix,
+    y: np.ndarray,
+    cfg: RunConfig,
+    true_signal: np.ndarray | None = None,
+    x1hat_init: np.ndarray | None = None,
+    covariates: np.ndarray | None = None,
+    write_outputs: bool = True,
+) -> ProbitResult:
+    """Run probit GLM-VAMP.  `y` (0/1), `true_signal`, `x1hat_init` and the
+    (N, C) z-scored `covariates` are host arrays in file units; `dm` is the
+    design operator on the run's device."""
+    not_ported = [name for name, on in (
+        ("--resume-file", cfg.resume_file),
+        ("--checkpoint-file", cfg.checkpoint_file),
+        ("--eigen-cache", cfg.eigen_cache),
+    ) if on]
+    if not_ported:
+        raise NotImplementedError(
+            f"{', '.join(not_ported)}: not ported yet (see ROADMAP.md)")
+
+    M_pad = dm.m_pad
+    Mt = int(dm.mt)
+    N = int(dm.n)
+    sqrt_n = float(np.sqrt(N))
+    wd = dm.wd
+    dev = dm.device
+
+    def pad_m(vec):
+        out = np.zeros(M_pad, dtype=np.float64)
+        if vec is not None:
+            out[: len(vec)] = vec
+        return torch.as_tensor(out).to(device=dev, dtype=wd)
+
+    ts_scaled = pad_m(np.asarray(true_signal) * sqrt_n if true_signal is not None else None)
+    x1_hat = pad_m(np.asarray(x1hat_init) / sqrt_n if x1hat_init is not None else None)
+    r1 = torch.zeros(M_pad, dtype=wd, device=dev)   # src/vamp_probit.cpp:55
+    r2 = torch.zeros(M_pad, dtype=wd, device=dev)
+    alpha1 = f64(0.0, dev)
+
+    y_t = torch.as_tensor(np.asarray(y, dtype=np.float64)).to(device=dev, dtype=wd)
+    prior = init_prior(cfg.probs, cfg.vars, N, device=dev)
+    gam1 = f64(float(cfg.gam1), dev)
+    tau1 = gam1  # src/vamp_probit.cpp:35
+    rho = float(cfg.rho)
+    probit_var = float(cfg.probit_var)
+
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(int(cfg.seed))
+    p1 = _draw_p1(gen, N, wd, dev)  # src/vamp_probit.cpp:53
+    p2 = torch.zeros(N, dtype=wd, device=dev)
+
+    setup = {}
+    cov_eff = None
+    m_cov = torch.zeros(N, dtype=wd, device=dev)
+    if cfg.C > 0 and covariates is not None and covariates.shape[1] > 0:
+        t_cov = time.time()
+        cov_eff = newton_method_cov(
+            np.asarray(y), np.zeros(N), covariates, np.zeros(cfg.C),
+            probit_var=cfg.probit_var, verbosity=cfg.verbosity,
+        )
+        m_cov = torch.as_tensor(covariates @ cov_eff).to(device=dev, dtype=wd)
+        setup["cov"] = time.time() - t_cov
+
+    if write_outputs:
+        out_metrics, out_params, out_prior = open_csvs(cfg)
+
+    solver = choose_lmmse_solver(cfg, Mt, N)
+    if solver not in ("cg", "eigen", "spectral"):
+        raise ValueError(f"unknown LMMSE solver {solver!r}")
+    warn_em_stability(cfg, Mt, N)
+    solver, fac = build_lmmse_factor(dm, cfg, solver, setup)
+    tracer = Tracer(
+        path=(f"{cfg.out_dir}/{cfg.out_name}_trace.jsonl"
+              if write_outputs and cfg.trace else None),
+        model="bin_class",
+        solver=solver,
+    )
+    itemsize = 0.5 if dm.X.dtype == PACKED4_DTYPE else dm.X.element_size()
+
+    writer = AsyncWriter()
+    stager = HostStager(dev)
+
+    metrics_history = []
+    it_done = 0
+    L = prior.L
+    exact = solver in ("spectral", "eigen")
+    zeros_m = torch.zeros(M_pad, dtype=wd, device=dev)
+
+    try:
+        for it in range(1, cfg.iterations + 1):
+            tracer.start()
+            _log(f"\n********************\niteration = {it}\n********************")
+
+            x1_prev = x1_hat
+            r1_in = r1  # the r1 this iteration denoises; dumped to _r1_it_<k>.bin
+            out = _probit_phase(
+                dm, y_t, m_cov, r1, r2, p1, p2,
+                gam1, tau1, alpha1, prior, x1_prev,
+                it > 1, rho, probit_var,
+                zeros_m if exact else _draw_probe(gen, dm), ts_scaled,
+                cfg.CG_max_iter, cfg.CG_err_tol,
+                fac=fac, solver=solver, debug=cfg.verbosity == 1,
+            )
+            if exact:
+                _skip_probe(gen, dm)  # while the device works
+
+            # EM prior update for the NEXT iteration (g1 above used the old
+            # prior; the reference calls updatePrior after the denoiser,
+            # src/vamp_probit.cpp:139)
+            if it > 1:
+                prior = _em_phase(
+                    dm, r1_in, gam1, prior, cfg.EM_max_iter, cfg.EM_err_thr,
+                    bool(cfg.learn_vars), cfg.merge_vars_thr,
+                    cfg.em_signal_budget(N), debug=cfg.verbosity == 1,
+                )
+
+            x1_hat = out["x1_hat"]
+            alpha1 = out["alpha1"]
+            r1, r2 = out["r1"], out["r2"]
+            p1, p2 = out["p1"], out["p2"]
+            gam1, tau1 = out["gam1"], out["tau1"]
+
+            # ONE batched host copy of every O(1) output; it also waits for
+            # the iteration's device work
+            host = torch.cat([
+                torch.stack([out["nmse"], gam1, tau1]),
+                out["params"], out["metrics"], prior.probs, prior.vars,
+                prior.active.to(torch.float64),
+            ]).cpu().numpy()
+            nmse, gam1_h, tau1_h = host[:3].tolist()
+            params = host[3:11]
+            metrics = host[11:23]
+            probs_h, vars_h = host[23:23 + L], host[23 + L:23 + 2 * L]
+            act = host[23 + 2 * L:] > 0.5
+            cg_iters = int(out["cg_iters"])
+
+            if write_outputs:
+                writer.submit(dump_iteration, cfg, Mt, sqrt_n, it,
+                              stager.copy((x1_hat, r1_in)))
+
+            metrics_history.append(metrics)
+            if write_outputs:
+                out_params.write_row(it, params.tolist())
+                out_metrics.write_row(it, metrics.tolist())
+                pr = probs_h[act]
+                vr = vars_h[act]  # internal ×N scale (src/vamp_probit.cpp:428)
+                out_prior.write_row(it, [float(len(pr))] + pr.tolist() + vr.tolist())
+
+            _log(f"params [a1,b1,g1,t1,a2,b2,g2,t2] = {params}")
+            _log(f"acc1 = {metrics[4]:.4f}, acc2 = {metrics[10]:.4f}, "
+                 f"x1_corr = {metrics[5]:.4f}, CG iters = {cg_iters}")
+
+            rec = tracer.stop(it, cg_iters, M_pad, N, itemsize, gam1=gam1_h, tau1=tau1_h)
+            _log(f"iteration time = {rec.seconds:.3f}s  "
+                 f"(~{rec.matrix_passes} matrix passes, {rec.gbps:.1f} GB/s)  "
+                 f"total = {tracer.total_comp_time:.3f}s")
+            it_done = it
+
+            _log(f"x1_hat NMSE = {nmse if np.isfinite(nmse) else 'n/a (zero previous iterate)'}")
+            if it > 1 and nmse < cfg.stop_criteria_thr:
+                _log("...stopping criteria fulfilled")
+                break
+    finally:
+        writer.close()  # artifacts durably on disk even on error paths
+
+    act = prior.active.cpu().numpy()
+    return ProbitResult(
+        x1_hat_scaled=x1_hat.cpu().numpy().astype(np.float64)[:Mt] / sqrt_n,
+        iterations_run=it_done,
+        gam1=float(gam1),
+        tau1=float(tau1),
+        cov_eff=cov_eff,
+        probs=prior.probs.cpu().numpy()[act],
+        vars=prior.vars.cpu().numpy()[act],
+        metrics_history=metrics_history,
+        r1_scaled=r1.cpu().numpy().astype(np.float64)[:Mt] / sqrt_n,
+        iter_seconds=[r.seconds for r in tracer.records],
+        setup=setup,
+        solver=solver,
+    )

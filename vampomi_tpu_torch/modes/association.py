@@ -21,7 +21,7 @@ msig_j (X_j - mave_j) x̂_j / sqrt(N) — what z1 subtracted — instead of the
 raw-marker quirk; the JAX package's docstring gives the reason.
 
 On the card the statistics of a quantized design come from the hand-written
-kernels: sumx and sumsqx from `row_moments_*` (exact int32 sums of the codes),
+kernels: sumx and sumsqx from `row_moments_*` (exact int64 sums of the codes),
 X y_mod from `atx_int8` / `atx_packed4` (f32, y_mod never rounded to bf16),
 and z1 from the `ax_batch_*` pass behind `ax`.
 """

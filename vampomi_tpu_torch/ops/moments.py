@@ -1,5 +1,5 @@
 """Per-row moments of the quantized design's codes: Σ q and Σ q² of each
-marker row, as int32, for the LOO association test (modes/association.py).
+marker row, as int64, for the LOO association test (modes/association.py).
 
 `row_moments_int8` ((M, N) int8 codes) and `row_moments_packed4` ((M, N/2)
 packed nibbles, both counted) wrap the hand-written CUDA kernel
@@ -9,10 +9,9 @@ fuses into its read of X: on the card a torch reduction of the int8 X alone
 runs at a tenth of the memory rate (PERF.md §6), and the squares would need
 an upcast copy of X.  The kernel reads X once, bound by its bytes.
 
-Both return an (M, 2) int32 tensor: column 0 the sums, column 1 the sums of
-squares.  They are exact integers, so kernel and plain version (int64 chunk
-sums) agree bitwise; a wrapper raises when a row is long enough for a sum of
-squares to leave int32 (N > 131,071 for int8, whose codes reach -128).
+Both return an (M, 2) int64 tensor: column 0 the sums, column 1 the sums of
+squares.  They are exact integers at any row length, so kernel and plain
+version (int64 chunk sums) agree bitwise.
 
 On a CUDA tensor a wrapper launches its kernel on the current stream (and
 raises if it cannot); on a CPU tensor it runs the plain PyTorch version.
@@ -28,21 +27,11 @@ from . import _build
 from .atx_int8 import check_int8, chunk_rows
 from .packed4 import check_packed, unpack_rows
 
-INT32_MAX = 2**31 - 1
-
-
-def _check_range(n: int, qmax: int, what: str) -> None:
-    """Raise unless n codes of magnitude up to qmax square-sum within int32."""
-    if qmax * qmax * n > INT32_MAX:
-        raise ValueError(f"{what}: rows of {n} codes up to |{qmax}| can sum their squares "
-                         f"past int32; at most {INT32_MAX // (qmax * qmax)} codes a row")
-
-
 def _moments_plain(X: torch.Tensor, n: int, codes64) -> torch.Tensor:
-    """(M, 2) int32 [Σ q, Σ q²] per row, from int64 codes of one chunk of rows
+    """(M, 2) int64 [Σ q, Σ q²] per row, from int64 codes of one chunk of rows
     at a time (codes64 gives a chunk's (rows, n) int64 codes)."""
     m = X.shape[0]
-    out = torch.empty((m, 2), dtype=torch.int32, device=X.device)
+    out = torch.empty((m, 2), dtype=torch.int64, device=X.device)
     rows = chunk_rows(m, 2 * n)  # int64 codes: 8 bytes a value where chunk_rows counts 4
     for lo in range(0, m, rows):
         q = codes64(X[lo:lo + rows])
@@ -52,13 +41,13 @@ def _moments_plain(X: torch.Tensor, n: int, codes64) -> torch.Tensor:
 
 
 def row_moments_int8_plain(X: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch per-row [Σ q, Σ q²] of int8 X → (M, 2) int32."""
+    """Plain PyTorch per-row [Σ q, Σ q²] of int8 X → (M, 2) int64."""
     return _moments_plain(X, X.shape[1], lambda c: c.to(torch.int64))
 
 
 def row_moments_packed4_plain(Xp: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch per-row [Σ q, Σ q²] over both nibbles' codes of packed
-    (M, N/2) X → (M, 2) int32."""
+    (M, N/2) X → (M, 2) int64."""
     return _moments_plain(Xp, 2 * Xp.shape[1], lambda c: unpack_rows(c, torch.int64))
 
 
@@ -66,7 +55,7 @@ def _launch(lib: str, X: torch.Tensor) -> torch.Tensor:
     m, nb = X.shape
     fn = _build.function("row_moments", f"{lib}_launch",
                          [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
-    out = torch.empty((m, 2), dtype=torch.int32, device=X.device)
+    out = torch.empty((m, 2), dtype=torch.int64, device=X.device)
     with torch.cuda.device(X.device):
         err = fn(X.data_ptr(), out.data_ptr(), m, nb, torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, f"{lib} at M={m}, bytes per row {nb}")
@@ -74,9 +63,8 @@ def _launch(lib: str, X: torch.Tensor) -> torch.Tensor:
 
 
 def row_moments_int8(X: torch.Tensor) -> torch.Tensor:
-    """Per-row [Σ q, Σ q²] of (M, N) int8 codes → (M, 2) int32."""
+    """Per-row [Σ q, Σ q²] of (M, N) int8 codes → (M, 2) int64."""
     check_int8(X, "row_moments_int8")
-    _check_range(X.shape[1], 128, "row_moments_int8")
     if X.device.type == "cpu":
         return row_moments_int8_plain(X)
     out = _launch("row_moments_int8", X)
@@ -86,9 +74,8 @@ def row_moments_int8(X: torch.Tensor) -> torch.Tensor:
 
 def row_moments_packed4(Xp: torch.Tensor) -> torch.Tensor:
     """Per-row [Σ q, Σ q²] over the N = 2·(N/2) codes of (M, N/2) packed
-    bytes → (M, 2) int32."""
+    bytes → (M, 2) int64."""
     check_packed(Xp, "row_moments_packed4")
-    _check_range(2 * Xp.shape[1], 8, "row_moments_packed4")
     if Xp.device.type == "cpu":
         return row_moments_packed4_plain(Xp)
     out = _launch("row_moments_packed4", Xp)

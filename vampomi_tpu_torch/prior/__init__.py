@@ -1,1 +1,1 @@
-"""Mixture prior: denoisers and EM updates."""
+"""Mixture prior: denoisers and EM updates; marginal-effect prior estimators."""

@@ -1,1 +1,1 @@
-"""Telemetry and the background artifact writer."""
+"""Telemetry, the background artifact writer and math utilities."""
