@@ -68,10 +68,26 @@ Phases (each prints its own lines; any failure ends the run non-zero):
   6. int4     — phases 5 (eigen and CG) and 5b at M = 2,097,152 x
                 N = 10,240 on a planted packed design (2,048 causal markers:
                 the same density), after the int8 X is freed.
+  7. gibbs    — the Gibbs warm start (vampomi_tpu_torch/gibbs): after the CLI
+                phases, card against CPU at M = 16,384 x N = 2,048 for int8
+                and int4 (the block Grams bitwise, then 3 sweeps, each from
+                the card's state with the same draws) and the workflow
+                through files at N = 2,000 x M = 8,000 (the Gibbs CLI, 40
+                sweeps; conf_gibbs_init; pip; the CLI's eigen run from the
+                .conf); after phase 5c, gibbs_block_update against its plain
+                version on two blocks of the int8 north-star design and at
+                ragged B and L (timed in turns at block 0), then run_gibbs at
+                full width on that design (4,096 blocks of 256, 3 sweeps)
+                and, after phase 6, on the packed one (8,192 blocks, 2
+                sweeps): Gram build and sweep seconds, peak memory, h2 and
+                m_incl per sweep, launches checked exactly (nb kernel
+                launches and nb passes each way a sweep), the host syncs of
+                one sweep.
 
-The line before the last is the kernel record {"kernels": [...]}: thirteen
+The line before the last is the kernel record {"kernels": [...]}: fourteen
 kernels standing for the twelve TPU kernels of the repo, the int8 einsum
-of CG's A^T pass and the LOO pass's row reductions, each with its bound
+of CG's A^T pass, the LOO pass's row reductions and the Gibbs sampler's
+block update, each with its bound
 (the larger of its bytes over 3.35 TB/s and its operations over the peak
 rate of their type, from this run's shapes) and its one-call PyTorch
 yardstick where one exists; the last line is {"ok": true, "device":
@@ -92,6 +108,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -105,6 +122,9 @@ from vampomi_tpu_torch.config import RunConfig, resolve_device  # noqa: E402
 from vampomi_tpu_torch.dataset import Dataset  # noqa: E402
 from vampomi_tpu_torch.engine.linear import infere_linear  # noqa: E402
 from vampomi_tpu_torch.engine.probit import infere_bin_class  # noqa: E402
+from vampomi_tpu_torch.gibbs import __main__ as gibbs_cli  # noqa: E402
+from vampomi_tpu_torch.gibbs import sampler as gibbs  # noqa: E402
+from vampomi_tpu_torch.gibbs.runner import run_gibbs  # noqa: E402
 from vampomi_tpu_torch.io.bin_io import read_bin_slab  # noqa: E402
 from vampomi_tpu_torch.io.csv_writer import read_positional_csv  # noqa: E402
 from vampomi_tpu_torch.io.phen import Phenotype  # noqa: E402
@@ -116,6 +136,9 @@ from vampomi_tpu_torch.ops.atx_int8 import (  # noqa: E402
 from vampomi_tpu_torch.ops.broadcast import (  # noqa: E402
     ax_batch_int8, ax_batch_int8_plain, ax_batch_packed4, ax_batch_packed4_plain,
 )
+from vampomi_tpu_torch.ops.gibbs_block import (  # noqa: E402
+    gibbs_block_update, gibbs_block_update_plain,
+)
 from vampomi_tpu_torch.ops.moments import (  # noqa: E402
     row_moments_int8, row_moments_int8_plain, row_moments_packed4, row_moments_packed4_plain,
 )
@@ -124,7 +147,7 @@ from vampomi_tpu_torch.ops.mxu import (  # noqa: E402
     bf16_round,
 )
 from vampomi_tpu_torch.ops.operator import (  # noqa: E402
-    PACKED4_DTYPE, ax, ax_batch, build_design, design_from_codes, design_from_packed,
+    PACKED4_DTYPE, atx, ax, ax_batch, build_design, design_from_codes, design_from_packed,
 )
 from vampomi_tpu_torch.ops.packed4 import (  # noqa: E402
     atx_batch_packed4, atx_batch_packed4_plain, atx_packed4, atx_packed4_plain,
@@ -133,6 +156,7 @@ from vampomi_tpu_torch.ops.spectral import build_spectral, shift_inverse  # noqa
 from vampomi_tpu_torch.ops.stream import (  # noqa: E402
     stream_rowsum, stream_rowsum_plain, stream_sum, stream_sum_plain,
 )
+from vampomi_tpu_torch.scripts import conf_gibbs_init, pip  # noqa: E402
 from vampomi_tpu_torch.sim.data_sim import simulate_iid, write_fixture  # noqa: E402
 from vampomi_tpu_torch.tools import (  # noqa: E402
     BF16_FLOPS, F32_FLOPS, KERNEL_CALLS, KERNEL_TOL, bound_ms, card_ms, codes64, exact_and_scale,
@@ -174,7 +198,8 @@ class Kernel(NamedTuple):
     plain: Callable         # its plain PyTorch version
     source: str             # the CUDA source it is built from
     replaces: str           # the TPU kernels it stands for, "file:line; ..."
-    kind: str               # "vec": X y; "rows": X Ys; "cols": X^T W; "stream"; "moments"
+    kind: str               # "vec": X y; "rows": X Ys; "cols": X^T W; "stream"; "moments";
+    #                         "gibbs": the sequential block update
     bf16: bool = False      # the vector is rounded to bf16 (tensor cores)
     library: Callable | None = None  # one PyTorch call computing the same, if any
 
@@ -224,6 +249,12 @@ KERNELS = {
                                   CSRC + "row_moments.cu",
                                   "vampomi_tpu/modes/association.py:78 (XLA reductions, no "
                                   "Pallas kernel)", "moments"),
+    # the Gibbs sampler's B dependent marker steps of a block: no PyTorch
+    # call does a sequential categorical scan
+    "gibbs_block_update": Kernel(gibbs_block_update, gibbs_block_update_plain,
+                                 CSRC + "gibbs_block.cu",
+                                 "vampomi_tpu/gibbs/sampler.py:128 (XLA fori_loop, no Pallas "
+                                 "kernel)", "gibbs"),
 }
 LIBRARIES = list(dict.fromkeys(os.path.basename(k.source)[:-3] for k in KERNELS.values()))
 
@@ -268,6 +299,9 @@ def bound(name: str, X: torch.Tensor, k: int) -> tuple[float, str]:
     per code (an add for the sum, a multiply and an add for the squares) at
     the f32 rate, with X and two int64 a row crossing HBM once."""
     kn = KERNELS[name]
+    if kn.kind == "gibbs":  # X is the (B, B) f32 Gram, k the mixture size L
+        b = X.shape[0]
+        return bound_ms(4 * b * b + 4 * 7 * b + 16 * k + 16, 2 * b * b)
     if kn.kind == "moments":
         codes = X.numel() * (2 if X.dtype == PACKED4_DTYPE else 1)
         return bound_ms(X.numel() + 16 * X.shape[0], 3 * codes)
@@ -1090,6 +1124,278 @@ def phase_modes(dtype: str, main: MainPath, out_dir: str, est: str, r1: str, gam
     return {name: rec}, {name: counts[name]}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the Gibbs warm start
+
+GIBBS_B, GIBBS_L = 256, 4
+# the kernel against its plain version: the components equal, and x to 1e-6
+# of its largest value (the f64 log and exp of CUDA's library and of the
+# host's, then x rounded to the work dtype)
+GIBBS_X_TOL = 1e-6
+# card against CPU, one sweep from one state with the same draws: r0 and the
+# passes sum in another order, so a draw whose u_j lies within that rounding
+# of a cumulative weight may flip; at most this many of 16,384 components
+# per sweep, and x to 1e-4 of its largest value where they agree (a flip
+# moves the following markers of its block through c, by its own size
+# times their correlation)
+GIBBS_FLIPS, GIBBS_PARITY_TOL = 8, 1e-4
+
+
+def gibbs_inputs(dev, B: int, L: int, masked: int, seed: int, Gb=None, r0=None) -> tuple:
+    """block_update's arguments on the card: a Gram of B random markers
+    (or the given one), r0, x, u and z from the seed, `masked` markers with
+    mmask 0, pi from a Dirichlet, the decade ladder, sigma_g 1.7, sigma_e
+    0.4 (f32 work dtype)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if Gb is None:
+        A = torch.randn((B, 300), device=dev, generator=g) / math.sqrt(300)
+        Gb = A @ A.T
+    if r0 is None:
+        r0 = 2.0 * torch.randn(B, device=dev, generator=g)
+    mm = torch.ones(B, device=dev)
+    mm[torch.randperm(B, device=dev, generator=g)[:masked]] = 0.0
+    rng = np.random.default_rng(seed)
+    f64 = dict(dtype=torch.float64, device=dev)
+    return (Gb, r0, 0.3 * torch.randn(B, device=dev, generator=g), mm,
+            torch.rand(B, device=dev, generator=g), torch.randn(B, device=dev, generator=g),
+            torch.as_tensor(rng.dirichlet(np.ones(L)), **f64),
+            torch.as_tensor(gibbs.decade_cvars(L), **f64),
+            torch.tensor(1.7, **f64), torch.tensor(0.4, **f64))
+
+
+def check_gibbs_kernel(args: tuple, tag: str, timed: bool) -> dict:
+    """gibbs_block_update against its plain version on the same card
+    tensors: the components equal, x within GIBBS_X_TOL of its largest
+    value, masked markers at 0, bitwise repeatable; when timed, kernel and
+    plain by CUDA events in turns (the kernel's samples are the mean of 5
+    back-to-back calls)."""
+    B, L = args[2].shape[0], args[6].shape[0]
+    x, k = gibbs_block_update(*args)
+    px, pk = gibbs_block_update_plain(*args)
+    torch.cuda.synchronize()
+    err = float((x - px).abs().max())
+    scale = float(px.abs().max())
+    masked = args[3] == 0
+    log(f"[gibbs] kernel {tag} B={B} L={L} ({int(masked.sum())} masked): components equal "
+        f"{bool(torch.equal(k, pk))}, x max abs diff {err:.3g} of max |x| {scale:.4g} "
+        f"(tolerance {GIBBS_X_TOL:g} of it); components drawn {torch.bincount(k, minlength=L).tolist()}")
+    check(torch.equal(k, pk), f"gibbs_block_update components differ from plain at {tag}")
+    check(err <= GIBBS_X_TOL * scale, f"gibbs_block_update x differs from plain at {tag}")
+    check(bool((x[masked] == 0).all()) and bool((k[masked] == 0).all()),
+          f"gibbs_block_update: masked markers not at 0 at {tag}")
+    x2, k2 = gibbs_block_update(*args)
+    check(torch.equal(x, x2) and torch.equal(k, k2), f"gibbs_block_update not repeatable at {tag}")
+    rec = dict(max_abs_err=err)
+    if timed:
+        ms, plain_ms, t_kern, t_plain = in_turns(lambda: gibbs_block_update(*args),
+                                                 lambda: gibbs_block_update_plain(*args))
+        least_ms, least_by = bound("gibbs_block_update", args[0], L)
+        log(f"[gibbs] kernel {tag}: {ms * 1e3:.1f} us a block, {ms * 1e6 / B:.0f} ns a marker "
+            f"step (bound {least_ms * 1e3:.3f} us by {least_by}, {100 * least_ms / ms:.2f}% of "
+            f"it); plain {plain_ms:.3f} ms; runs {t_kern} / {t_plain}")
+        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=least_ms, bound_by=least_by,
+                   library_ms=None)
+    return rec
+
+
+def phase_gibbs_kernel(main: MainPath) -> dict:
+    """The kernel at the main path's shape, B = 256 and L = 4, on two real
+    blocks of the main path's quantized design (block 0, timed, and a middle
+    one: their Grams, r0 = A_b^T y_resid of the cold start), then at ragged
+    shapes: B = 1, 100 and 1,500, L = 2 and 6, with masked markers.
+    Returns block 0's record with the largest error of all."""
+    dm, y = main.dataset.dm, main.dataset.phen.y
+    dev = dm.device
+    y_resid = torch.as_tensor(y - y.mean(), dtype=torch.float32, device=dev)
+    rec = None
+    for b in (0, dm.m_pad // GIBBS_B // 2):
+        d = gibbs._block_dm(dm, b, GIBBS_B)
+        Gb = gibbs._quantized_gram(d, torch.tensor(dm.n, dtype=torch.float32, device=dev))
+        args = gibbs_inputs(dev, GIBBS_B, GIBBS_L, 0, SEED + b, Gb=Gb, r0=atx(d, y_resid))
+        r = check_gibbs_kernel(args, f"north-star block {b}", timed=rec is None)
+        rec = r if rec is None else {**rec, "max_abs_err": max(rec["max_abs_err"],
+                                                                r["max_abs_err"])}
+    for B, L, masked in ((1, 2, 0), (100, 6, 7), (1500, 2, 30), (1500, 6, 0)):
+        r = check_gibbs_kernel(gibbs_inputs(dev, B, L, masked, SEED + B), "ragged", timed=False)
+        rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
+    return rec
+
+
+def phase_gibbs_parity(dev, dtype: str, m: int = 16_384, n: int = 2_048, sweeps: int = 3) -> None:
+    """Card against CPU at M x N (data_sim): the block Grams (quantized:
+    bitwise), then `sweeps` sweeps, each from the card's state on both
+    devices with the same draws (TorchDraws of one seed)."""
+    t0 = time.perf_counter()
+    fx = simulate_iid(n=n, m=m, lam=0.05, h2=0.6, seed=SEED)
+    y = fx.y / np.std(fx.y, ddof=1)
+    dms = {d: build_design(fx.X.T, compute_dtype=DTYPES[dtype], device=d) for d in (dev, "cpu")}
+    grams = {d: gibbs.build_block_grams(dm, block=GIBBS_B) for d, dm in dms.items()}
+    check(torch.equal(grams[dev].cpu(), grams["cpu"]), f"gibbs {dtype}: card Grams differ")
+    cvars = gibbs.decade_cvars(GIBBS_L)
+    state = gibbs.init_state(dms["cpu"], y, GIBBS_L)
+    flips, errs = [], []
+    for i in range(sweeps):
+        out = {}
+        for d, dm in dms.items():
+            out[d] = gibbs.gibbs_sweep(dm, grams[d], gibbs.GibbsState(*[t.to(d) for t in state]),
+                                       torch.as_tensor(cvars).to(d), gibbs.TorchDraws(SEED + i),
+                                       torch.as_tensor(y, dtype=torch.float32).to(d),
+                                       block=GIBBS_B)
+        (a, sa), (b, sb) = out[dev], out["cpu"]
+        ac, ax_ = a.comp.cpu(), a.x.cpu()
+        agree = ac == b.comp
+        flips.append(int((~agree).sum()))
+        errs.append(float((ax_[agree] - b.x[agree]).abs().max()) / float(b.x.abs().max()))
+        check(flips[-1] <= GIBBS_FLIPS and errs[-1] <= GIBBS_PARITY_TOL,
+              f"gibbs {dtype} sweep {i + 1}: card and cpu disagree ({flips[-1]} components, "
+              f"x {errs[-1]:.3g})")
+        if flips[-1] == 0:  # a flip changes the gamma and Dirichlet shapes
+            hyper = np.abs(np.array([sa.sigma_g, sa.sigma_e]) / np.array(
+                [sb.sigma_g, sb.sigma_e]) - 1.0)
+            check(sa.m_incl == sb.m_incl and hyper.max() <= GIBBS_PARITY_TOL,
+                  f"gibbs {dtype} sweep {i + 1}: card and cpu hyperparameters disagree")
+        state = [t.cpu() for t in a]
+    log(f"[gibbs] {dtype} card vs cpu at M={m} N={n}, {sweeps} sweeps from the card's state: "
+        f"components differing {flips} (at most {GIBBS_FLIPS}), x max diff {np.round(errs, 9)} of "
+        f"max |x| (tolerance {GIBBS_PARITY_TOL:g}); m_incl {sa.m_incl}; "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+GIBBS_PASSES = {"int8": ("atx_int8", "ax_batch_int8"), "int4": ("atx_packed4", "ax_batch_packed4")}
+
+
+def phase_gibbs_main(dtype: str, main: MainPath, out_dir: str, sweeps: int) -> dict:
+    """run_gibbs at full width on the main path's planted design (B = 256,
+    L = 4), the CSV, .bet and .grm in out_dir; launches counted from 0 just
+    before and read just after, checked exactly: nb kernel launches and nb
+    passes each way a sweep.  Prints the Gram build, the sweeps' seconds,
+    peak memory, h2 and m_incl per sweep, then the host syncs of one more
+    sweep (torch's sync debug mode).  Returns the launches."""
+    dm, y = main.dataset.dm, main.dataset.phen.y
+    dev = dm.device
+    nb = dm.m_pad // GIBBS_B
+    d0 = gibbs._block_dm(dm, 0, GIBBS_B)
+    Xq = d0.X if d0.X.dtype == torch.int8 else gibbs.unpack_rows(d0.X, torch.int8)
+    int_mm_ms = card_ms(lambda: gibbs._codes_product(Xq), reps=5, warmup=1, calls=KERNEL_CALLS)
+    n_dev = torch.tensor(float(dm.n), dtype=torch.float32, device=dev)
+    block_ms = card_ms(lambda: gibbs._quantized_gram(d0, n_dev), reps=5, warmup=1,
+                       calls=KERNEL_CALLS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    res = run_gibbs(dm, y, iterations=sweeps, burnin=sweeps - 1, l_comp=GIBBS_L, block=GIBBS_B,
+                    seed=SEED, out_dir=os.path.join(out_dir, f"gibbs_{dtype}"), out_name="g",
+                    verbose=False)
+    torch.cuda.synchronize()
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    rows = [line.split(",") for line in open(res.csv_path).read().splitlines()]
+    h2 = [float(r[4]) for r in rows]
+    m_incl = [int(r[5]) for r in rows]
+    secs = list(res.sweep_seconds)
+    log(f"[gibbs {dtype}] M={dm.m_pad} N={int(dm.n)}: {nb} block Grams (B={GIBBS_B}, "
+        f"{nb * GIBBS_B * GIBBS_B * 4 / 2**30:.2f} GiB) in {res.gram_seconds:.3f}s (a block: "
+        f"torch._int_mm {int_mm_ms:.4f} ms, the whole Gram {block_ms:.4f} ms); sweep seconds "
+        f"{[round(t, 3) for t in secs]} (median of sweeps 2..{sweeps}: "
+        f"{float(np.median(secs[1:])):.3f}s, {float(np.median(secs[1:])) * 1e9 / dm.m_pad:.0f} "
+        f"ns a marker); peak memory {peak:.2f} GiB; h2 {np.round(h2, 4).tolist()}, m_incl "
+        f"{m_incl}; kernel launches {({k: c for k, c in counts.items() if c})}")
+    want = {"gibbs_block_update": sweeps * nb, **{k: sweeps * nb for k in GIBBS_PASSES[dtype]}}
+    check({k: c for k, c in counts.items() if c} == want,
+          f"gibbs {dtype}: launches {counts}, want {want}")
+    check(all(np.isfinite(h2)) and all(0.0 < v < 1.0 for v in h2) and len(rows) == sweeps,
+          f"gibbs {dtype}: h2 not finite in (0, 1)")
+    for f in (res.bet_path, res.grm_path):
+        check(os.path.getsize(f) > 0, f"gibbs {dtype}: {f} empty")
+    check(bool(np.all(np.isfinite(res.x_mean_file))), f"gibbs {dtype}: posterior mean not finite")
+    # the host syncs of one sweep: torch's sync debug mode warns at each
+    grams = gibbs.build_block_grams(dm, block=GIBBS_B)
+    state = gibbs.init_state(dm, y, GIBBS_L)
+    cvars = torch.as_tensor(gibbs.decade_cvars(GIBBS_L)).to(dev)
+    draws = gibbs.TorchDraws(SEED)
+    y_dev = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            gibbs.gibbs_sweep(dm, grams, state, cvars, draws, y_dev, block=GIBBS_B)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    log(f"[gibbs {dtype}] host syncs in one sweep of {nb} blocks (torch's sync debug mode): "
+        f"{len(syncs)}")
+    check(len(syncs) == 1, f"gibbs {dtype}: {len(syncs)} host syncs in a sweep, want 1 (its fetch)")
+    del grams, state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_gibbs_workflow(dev, log_dir: str, n: int = 2_000, m: int = 8_000, sweeps: int = 40,
+                         iters: int = 8) -> None:
+    """The warm start through files, int8: the Gibbs CLI (`sweeps` sweeps,
+    the second half kept), conf_gibbs_init over that window, pip on the
+    .bet, and the CLI's eigen inference from the .conf.  Every file exists
+    and is finite; the run's iteration-1 prior is the .conf's; the x1
+    correlation rises."""
+    with tempfile.TemporaryDirectory(prefix="vampomi_gibbs_") as d:
+        fx = simulate_iid(n=n, m=m, lam=0.1, h2=0.8, seed=SEED)
+        paths = write_fixture(fx, d, "ex")
+        common = ["--meth-file", paths["bin"], "--phen-file", paths["phen"], "--N", str(n),
+                  "--Mt", str(m), "--out-dir", d, "--device", str(dev)]
+        t0 = time.perf_counter()
+        with engine_log(log_dir, "gibbs_cli"):
+            check(gibbs_cli.main(common + ["--out-name", "g", "--iterations", str(sweeps),
+                                           "--burnin", str(sweeps // 2), "--compute-dtype",
+                                           "int8"]) == 0, "gibbs cli returned non-zero")
+            t_gibbs = time.perf_counter() - t0
+            window = f"{sweeps // 2}:{sweeps}"
+            conf = conf_gibbs_init.main(["-csv", os.path.join(d, "g.csv"), "-grm",
+                                         os.path.join(d, "g.grm"), "-out_dir", d,
+                                         "-iterations", window])
+            pips = pip.main(["-bet", os.path.join(d, "g.bet"), "-iterations", window])
+        rows = [line.split(",") for line in open(os.path.join(d, "g.csv")).read().splitlines()]
+        vals = np.array([[float(v) for v in r] for r in rows])
+        check(vals.shape == (sweeps, 12) and bool(np.all(np.isfinite(vals))), "gibbs csv bad")
+        check(os.path.getsize(os.path.join(d, "g.bet")) == 4 + sweeps * (4 + 8 * m), "gibbs .bet")
+        grm = [float(v) for v in open(os.path.join(d, "g.grm")).read().split()]
+        check(len(grm) == 4 and all(np.isfinite(grm)), "gibbs .grm bad")
+        pipf = np.fromfile(os.path.join(d, "g.pip"))
+        check(pipf.shape == (m,) and bool(np.all(np.isfinite(pipf))) and np.array_equal(pipf, pips),
+              "gibbs .pip bad")
+        prior = cli.load_init_conf(conf)
+        out = "warm"
+        argv = common + ["--run-mode", "infere", "--true-signal-file", paths["ts"],
+                         "--out-name", out, "--iterations", str(iters), "--stop-criteria-thr",
+                         "0", "--init-conf", conf, "--lmmse-solver", "eigen",
+                         "--compute-dtype", "int8"]
+        t1 = time.perf_counter()
+        with engine_log(log_dir, "gibbs_init_conf"):
+            check(cli.main(argv) == 0, "cli --init-conf returned non-zero")
+        t_vamp = time.perf_counter() - t1
+        want = {f"{out}_{s}.csv" for s in ("metrics", "params", "prior")} | {f"{out}_trace.jsonl"}
+        want |= {f"{out}_{k}it_{i}.bin" for k in ("", "r1_") for i in range(1, iters + 1)}
+        have = {f for f in os.listdir(d) if f.startswith(out + "_")}
+        check(have == want, f"cli --init-conf: files {sorted(have ^ want)} differ")
+        for f in sorted(want):
+            p = os.path.join(d, f)
+            if f.endswith(".bin"):
+                check(bool(np.all(np.isfinite(read_bin_slab(p, m)))), f"{f} not finite")
+            elif f.endswith(".csv"):
+                check(bool(np.all(np.isfinite(read_positional_csv(p)))), f"{f} not finite")
+        first = read_positional_csv(os.path.join(d, f"{out}_prior.csv"))[0]
+        L = len(prior["probs"])
+        check(int(first[1]) == L and np.allclose(first[2:2 + L], prior["probs"], rtol=1e-9)
+              and np.allclose(first[2 + L:2 + 2 * L], prior["vars"], rtol=1e-9, atol=0),
+              f"cli --init-conf: iteration 1's prior {first} is not the .conf's {prior}")
+        x1c = [r[2] for r in read_positional_csv(os.path.join(d, f"{out}_metrics.csv"))]
+        log(f"[gibbs] workflow N={n} M={m}: gibbs cli {sweeps} sweeps {t_gibbs:.1f}s (h2 "
+            f"{vals[-1, 4]:.4f}, m_incl {int(vals[-1, 5])}); .conf h2 {prior['h2']:.4f}, probs "
+            f"{np.round(prior['probs'], 5).tolist()}; pip of {int((pipf > 0.5).sum())} markers > "
+            f"0.5; --init-conf eigen run {t_vamp:.1f}s, x1 corr {np.round(x1c, 4).tolist()}")
+        check(x1c[-1] > x1c[0], "cli --init-conf: x1 correlation did not rise")
+
+
 def main_dumps(out_dir: str, dtype: str, solver: str, k: int) -> tuple[str, str, float]:
     """The last iteration's estimate and r1 dumps of a main-path run, and the
     gam1 its params CSV pairs with that r1."""
@@ -1121,6 +1427,9 @@ def main(argv=None) -> int:
         phase_parity(dev, "int8", log_dir, out_dir, c=2, iters={"eigen": 4})
         phase_cli(dev, log_dir)
         phase_cli_probit(dev, log_dir)
+        for dtype in DTYPES:
+            phase_gibbs_parity(dev, dtype)
+        phase_gibbs_workflow(dev, log_dir)
         main8 = phase_main("int8", X8, log_dir, out_dir, x1_min=0.4,
                            solvers=(("eigen", 5), ("auto", 4), ("cg", 2)))
         counts = dict(main8.launches)
@@ -1131,6 +1440,10 @@ def main(argv=None) -> int:
         probit_counts = phase_probit_main(main8, log_dir, out_dir)
         for name in ("atx_int8", "ax_batch_int8", "atx_batch_int8"):  # both main paths
             counts[name] += probit_counts[name]
+        recs["gibbs_block_update"] = phase_gibbs_kernel(main8)
+        gibbs_counts = phase_gibbs_main("int8", main8, out_dir, sweeps=3)
+        for name in ("gibbs_block_update", "atx_int8", "ax_batch_int8"):  # and the sampler's
+            counts[name] = counts.get(name, 0) + gibbs_counts[name]
         del X8, main8
         torch.cuda.empty_cache()  # the int8 X goes before the int4 path
         main4 = phase_main("int4", X4, log_dir, out_dir, x1_min=X1_MIN_INT4)
@@ -1140,6 +1453,9 @@ def main(argv=None) -> int:
             "int4", main4, out_dir, *main_dumps(out_dir, "int4", "eigen", 5), test_runs=5)
         recs.update(mode_recs)
         counts.update(mode_counts)
+        gibbs_counts = phase_gibbs_main("int4", main4, out_dir, sweeps=2)
+        for name in ("gibbs_block_update", "atx_packed4", "ax_batch_packed4"):
+            counts[name] += gibbs_counts[name]
         del main4
         counts.update(probe_counts)
         for name, c in counts.items():

@@ -117,7 +117,7 @@ def test_cli_estimates_match(runs, solver):
 
 UNPORTED = [
     ["--resume-file", "ck.npz"],
-    ["--checkpoint-file", "ck.npz"], ["--eigen-cache", "e.npz"], ["--init-conf", "g.conf"],
+    ["--checkpoint-file", "ck.npz"], ["--eigen-cache", "e.npz"],
     ["--profile-dir", "prof"], ["--compute-dtype", "bf16"],
 ]
 

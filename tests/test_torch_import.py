@@ -31,6 +31,8 @@ import vampomi_tpu_torch.api, vampomi_tpu_torch.ops.moments, vampomi_tpu_torch.m
 import vampomi_tpu_torch.modes.test_mode, vampomi_tpu_torch.modes.predict
 import vampomi_tpu_torch.engine.probit, vampomi_tpu_torch.glm.probit
 import vampomi_tpu_torch.utils.mathx, vampomi_tpu_torch.prior.marginal
+import vampomi_tpu_torch.gibbs.__main__, vampomi_tpu_torch.ops.gibbs_block
+import vampomi_tpu_torch.scripts.conf_gibbs_init, vampomi_tpu_torch.scripts.pip
 state1 = (str(torch.get_default_dtype()), torch.backends.cuda.matmul.allow_tf32,
           torch.get_float32_matmul_precision())
 added = sorted(set(sys.modules) - before)
@@ -52,7 +54,8 @@ def test_importing_the_port_pulls_in_no_jax():
                 "ops.mxu", "tools", "tools.matvec_floor_probe", "tools.r4_probe", "api",
                 "ops.moments", "ops.spectral", "modes.association", "modes.test_mode",
                 "modes.predict", "engine.probit", "glm.probit", "utils.mathx",
-                "prior.marginal"):
+                "prior.marginal", "gibbs.sampler", "gibbs.runner", "ops.gibbs_block",
+                "scripts.conf_gibbs_init", "scripts.pip"):
         assert f"vampomi_tpu_torch.{mod}" in res["added"], mod
     assert res["same_state"], "importing the port changed global torch state"
 

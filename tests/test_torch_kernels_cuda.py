@@ -32,6 +32,8 @@ from vampomi_tpu_torch.ops.moments import (
 from vampomi_tpu_torch.ops.broadcast import (
     ax_batch_int8, ax_batch_int8_plain, ax_batch_packed4, ax_batch_packed4_plain,
 )
+from vampomi_tpu_torch.gibbs import sampler as gibbs_sampler
+from vampomi_tpu_torch.ops.gibbs_block import gibbs_block_update, gibbs_block_update_plain
 from vampomi_tpu_torch.ops.mxu import (
     atx_mxu, atx_mxu_plain, ax2_packed4_mxu, ax2_packed4_mxu_plain, ax_mxu, ax_mxu_plain,
     bf16_round,
@@ -380,3 +382,99 @@ def test_a_column_does_not_depend_on_its_batch_on_card(cuda_device, dtype):
         lo = min(k, 5)
         three = top.ax_batch(dm, xs[:, lo:lo + 3].contiguous())[:, k - lo]
         torch.testing.assert_close(three, full[:, k], rtol=0, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# the Gibbs block update (csrc/gibbs_block.cu) and the sampler on the card
+
+
+def _gibbs_block_inputs(B, L, dtype, masked, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    A = torch.randn((B, 300), device=dev, generator=g) / np.sqrt(300)  # the Gram made on the card
+    mm = np.ones(B)
+    mm[rng.choice(B, masked, replace=False)] = 0.0
+    vec = {"u": rng.uniform(size=B), "z": rng.normal(size=B), "xb0": rng.normal(size=B) * 0.3,
+           "mmask_b": mm}
+    t = {k: torch.as_tensor(v, dtype=dtype, device=dev) for k, v in vec.items()}
+    f64 = dict(dtype=torch.float64, device=dev)
+    return (A @ A.T,
+            torch.as_tensor(rng.normal(size=B) * 2, dtype=torch.float32, device=dev),
+            t["xb0"], t["mmask_b"], t["u"], t["z"],
+            torch.as_tensor(rng.dirichlet(np.ones(L)), **f64),
+            torch.as_tensor(gibbs_sampler.decade_cvars(L), **f64),
+            torch.tensor(1.7, **f64), torch.tensor(0.4, **f64))
+
+
+@pytest.mark.parametrize("B,L,dtype,masked", [
+    (1, 4, torch.float32, 0), (100, 2, torch.float32, 5), (256, 4, torch.float32, 3),
+    (256, 6, torch.float64, 3), (1500, 4, torch.float32, 10), (1500, 2, torch.float64, 0),
+    (58_200, 4, torch.float32, 20)])  # 4 B + 32 L bytes past 232,448: c in global scratch
+def test_gibbs_block_update_kernel_matches_plain_on_card(cuda_device, B, L, dtype, masked):
+    """The kernel against its plain version on the same card tensors: the
+    components equal, x to 1e-6 of its largest value (f64 log and exp of
+    two libraries), masked markers at 0; bitwise repeatable; one launch a
+    call."""
+    args = _gibbs_block_inputs(B, L, dtype, masked, cuda_device)
+    before = gibbs_block_update.launches
+    x, k = gibbs_block_update(*args)
+    px, pk = gibbs_block_update_plain(*args)
+    torch.cuda.synchronize()
+    assert x.dtype == dtype and k.dtype == torch.int32
+    assert torch.equal(k, pk)
+    torch.testing.assert_close(x, px, rtol=0, atol=1e-6 * float(px.abs().max()))
+    assert bool((x[args[3] == 0] == 0).all()) and bool((k[args[3] == 0] == 0).all())
+    x2, k2 = gibbs_block_update(*args)
+    assert torch.equal(x, x2) and torch.equal(k, k2)
+    assert gibbs_block_update.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, top.PACKED4_DTYPE, torch.float32])
+def test_block_grams_on_card_match_cpu(cuda_device, dtype):
+    """Quantized Grams bitwise equal to the CPU's (exact integer products,
+    the same f32 corrections; torch._int_mm at a block of 100 rows and an
+    N of 1,002 pads both); f32 Grams to 1e-5 of the largest (cuBLAS and the
+    CPU's BLAS sum in other orders)."""
+    rng = np.random.default_rng(1)
+    X = rng.uniform(size=(400, 1002))
+    cpu = gibbs_sampler.build_block_grams(top.build_design(X, compute_dtype=dtype), block=100)
+    card = gibbs_sampler.build_block_grams(
+        top.build_design(X, compute_dtype=dtype, device=cuda_device), block=100).cpu()
+    if dtype == torch.float32:
+        torch.testing.assert_close(card, cpu, rtol=0, atol=1e-5 * float(cpu.abs().max()))
+    else:
+        assert torch.equal(card, cpu)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, top.PACKED4_DTYPE])
+def test_gibbs_sweep_on_card_matches_cpu(cuda_device, dtype):
+    """Two sweeps on the card and on the CPU from the same state with the
+    same draws: all but at most 2 of 2,048 components equal (a draw near a
+    boundary may flip under the passes' other summation order), x to 1e-4
+    of its largest value where they agree; one kernel launch and one pass
+    each way per block."""
+    sim = simulate_iid(n=512, m=2048, lam=0.05, h2=0.6, seed=3)
+    y = sim.y / sim.y.std(ddof=1)
+    cvars = gibbs_sampler.decade_cvars(4)
+    state = None
+    for _ in range(2):
+        outs = {}
+        for dev in ("cpu", cuda_device):
+            dm = top.build_design(sim.X.T, compute_dtype=dtype, device=dev)
+            grams = gibbs_sampler.build_block_grams(dm, block=256)
+            s0 = (gibbs_sampler.init_state(dm, y, 4) if state is None
+                  else gibbs_sampler.GibbsState(*[t.to(dev) for t in state]))
+            before = gibbs_block_update.launches
+            new, _ = gibbs_sampler.gibbs_sweep(
+                dm, grams, s0, torch.as_tensor(cvars).to(dev), gibbs_sampler.TorchDraws(5),
+                torch.as_tensor(y, dtype=torch.float32, device=dev), block=256)
+            outs[str(dev)] = (new, gibbs_block_update.launches - before)
+        (a, na), (b, nb) = outs["cpu"], outs[str(cuda_device)]
+        assert na == 0 and nb == 8
+        bc, bx = b.comp.cpu(), b.x.cpu()
+        agree = a.comp == bc
+        assert int((~agree).sum()) <= 2
+        torch.testing.assert_close(bx[agree], a.x[agree], rtol=0,
+                                   atol=1e-4 * float(a.x.abs().max()))
+        state = [t.cpu() for t in b]

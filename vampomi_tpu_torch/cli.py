@@ -8,7 +8,9 @@ the cg, spectral and eigen LMMSE solvers (auto picks as the JAX package
 does) over f64, f32, int8 and packed-int4 (`--compute-dtype int4`) designs;
 `--run-mode test` and `predict` for both models; `--run-mode
 association_test` (`--pval-method se | loo | loo_std`), which does not
-depend on the model.  Checkpoint/resume, the eigen cache, `--init-conf`,
+depend on the model; `--init-conf` starts the prior from a Gibbs warm
+start's `.conf` (python -m vampomi_tpu_torch.gibbs, then
+scripts/conf_gibbs_init.py).  Checkpoint/resume, the eigen cache,
 `--profile-dir` and bf16 exit with a message naming ROADMAP.md; none is
 replaced by other behaviour.
 
@@ -103,12 +105,29 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--resume-file", default="")
     x.add_argument("--trace", type=int, default=1,
                    help="write <out>_trace.jsonl per-iteration telemetry")
-    x.add_argument("--init-conf", default="")
+    x.add_argument("--init-conf", default="",
+                   help="warm-start .conf from scripts/conf_gibbs_init.py: sets "
+                        "rho, h2, probs and vars; explicit --probs/--vars "
+                        "flags still win")
     x.add_argument("--profile-dir", default="")
     x.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="run on the card (default; raises without one) or "
                         "on the CPU")
     return p
+
+
+def load_init_conf(path: str) -> dict:
+    """Parse a conf_gibbs_init .conf (tab-separated: ID rho mix_comp lambda
+    probs vars h2; probs/vars comma-joined); vampomi_tpu/cli.py:123-135."""
+    lines = [line for line in open(path).read().splitlines() if line.strip()]
+    header = lines[0].split("\t")
+    fields = dict(zip(header, lines[1].split("\t")))
+    return dict(
+        rho=float(fields["rho"]),
+        h2=float(fields["h2"]),
+        probs=[float(v) for v in fields["probs"].split(",")],
+        vars=[float(v) for v in fields["vars"].split(",")],
+    )
 
 
 def parse_config(argv: list[str]) -> RunConfig:
@@ -121,6 +140,10 @@ def parse_config(argv: list[str]) -> RunConfig:
         setattr(cfg, key, getattr(args, key))
     if args.num_mix_comp >= 0:
         cfg.num_mix_comp = args.num_mix_comp
+    if args.init_conf:
+        conf = load_init_conf(args.init_conf)
+        cfg.rho, cfg.h2 = conf["rho"], conf["h2"]
+        cfg.probs, cfg.vars = conf["probs"], conf["vars"]
     if args.vars:
         cfg.vars = [float(v) for v in args.vars.split(",")]
     if args.probs:
@@ -131,19 +154,18 @@ def parse_config(argv: list[str]) -> RunConfig:
         print(f"WARNING: --num-mix-comp {args.num_mix_comp} is decorative — "
               f"the prior has len(--probs) = {len(cfg.probs)} components "
               f"(reference options.cpp:147-155)")
-    _reject_unported(cfg, args.init_conf)
+    _reject_unported(cfg)
     cfg.check()
     return cfg
 
 
-def _reject_unported(cfg: RunConfig, init_conf: str) -> None:
+def _reject_unported(cfg: RunConfig) -> None:
     """SystemExit naming ROADMAP.md for every flag and compute dtype the
     port does not run yet."""
     bad = []
     for flag, val in (("--resume-file", cfg.resume_file),
                       ("--checkpoint-file", cfg.checkpoint_file),
                       ("--eigen-cache", cfg.eigen_cache),
-                      ("--init-conf", init_conf),
                       ("--profile-dir", cfg.profile_dir)):
         if val:
             bad.append(flag)

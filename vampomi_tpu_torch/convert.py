@@ -2,7 +2,7 @@
 
 Each function takes a dict of numpy arrays — the fields of a JAX
 `DesignMatrix`, `MixturePrior`, `GramFactor`, `ShiftInverse` or
-`EigenFactor`, already fetched with np.asarray by the caller — and builds the
+`EigenFactor` or `GibbsState`, already fetched with np.asarray by the caller — and builds the
 port's counterpart on a given device.  Parity tests go through these so that
 both packages compute on identical inputs.  Nothing here imports jax.
 """
@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .gibbs.sampler import GibbsState
 from .ops.eigen import EigenFactor
 from .ops.operator import DesignMatrix
 from .ops.spectral import GramFactor, ShiftInverse
@@ -82,4 +83,21 @@ def eigen_from_arrays(d: dict, device: str | torch.device = "cpu",
     return EigenFactor(
         U=U.to(device=device, dtype=dtype or U.dtype),
         lam=torch.tensor(np.asarray(d["lam"], dtype=np.float64)).to(device),
+    )
+
+
+def gibbs_state_from_arrays(d: dict, device: str | torch.device = "cpu") -> GibbsState:
+    """GibbsState from `x, comp, y_resid, mu, sigma_g, sigma_e, pi`: x and
+    y_resid keep their (work) dtype, comp becomes int32, the rest f64."""
+    def f64(a):
+        return torch.tensor(np.asarray(a, dtype=np.float64)).to(device)
+
+    return GibbsState(
+        x=torch.tensor(np.asarray(d["x"])).to(device),
+        comp=torch.tensor(np.asarray(d["comp"], dtype=np.int32)).to(device),
+        y_resid=torch.tensor(np.asarray(d["y_resid"])).to(device),
+        mu=f64(d["mu"]).reshape(()),
+        sigma_g=f64(d["sigma_g"]).reshape(()),
+        sigma_e=f64(d["sigma_e"]).reshape(()),
+        pi=f64(d["pi"]),
     )
