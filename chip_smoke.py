@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on one NVIDIA card and check it.
 
-    python3 chip_smoke.py [--log-dir DIR]
+    python3 chip_smoke.py [--log-dir DIR] [--gibbs-reference CU]
 
 Phases (each prints its own lines; any failure ends the run non-zero):
 
@@ -76,13 +76,18 @@ Phases (each prints its own lines; any failure ends the run non-zero):
                 sweeps; conf_gibbs_init; pip; the CLI's eigen run from the
                 .conf); after phase 5c, gibbs_block_update against its plain
                 version on two blocks of the int8 north-star design and at
-                ragged B and L (timed in turns at block 0), then run_gibbs at
-                full width on that design (4,096 blocks of 256, 3 sweeps)
-                and, after phase 6, on the packed one (8,192 blocks, 2
-                sweeps): Gram build and sweep seconds, peak memory, h2 and
-                m_incl per sweep, launches checked exactly (nb kernel
-                launches and nb passes each way a sweep), the host syncs of
-                one sweep.
+                ragged B and L (the tails of its sub-blocks of 32 markers, L
+                past a warp's lanes; timed in turns at block 0, with the
+                host's time a call) and, with
+                --gibbs-reference CU (an earlier gibbs_block.cu), bitwise
+                against that kernel and timed against it in turns; then
+                run_gibbs at full width on that design (4,096 blocks of 256,
+                3 sweeps) and, after phase 6, on the packed one (8,192
+                blocks, 2 sweeps): Gram build and sweep seconds, peak
+                memory, h2 and m_incl per sweep, launches checked exactly
+                (nb kernel launches and nb passes each way a sweep), one
+                more sweep's host enqueue time against its wall, the host
+                syncs of one sweep.
 
 The line before the last is the kernel record {"kernels": [...]}: fourteen
 kernels standing for the twelve TPU kernels of the repo, the int8 einsum
@@ -100,7 +105,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -137,7 +144,7 @@ from vampomi_tpu_torch.ops.broadcast import (  # noqa: E402
     ax_batch_int8, ax_batch_int8_plain, ax_batch_packed4, ax_batch_packed4_plain,
 )
 from vampomi_tpu_torch.ops.gibbs_block import (  # noqa: E402
-    gibbs_block_update, gibbs_block_update_plain,
+    SMEM_BYTES, gibbs_block_update, gibbs_block_update_plain,
 )
 from vampomi_tpu_torch.ops.moments import (  # noqa: E402
     row_moments_int8, row_moments_int8_plain, row_moments_packed4, row_moments_packed4_plain,
@@ -1132,6 +1139,8 @@ GIBBS_B, GIBBS_L = 256, 4
 # of its largest value (the f64 log and exp of CUDA's library and of the
 # host's, then x rounded to the work dtype)
 GIBBS_X_TOL = 1e-6
+# calls in a sample of the wrapper's host time (queued, far below the queue's depth)
+GIBBS_HOST_CALLS = 100
 # card against CPU, one sweep from one state with the same draws: r0 and the
 # passes sum in another order, so a draw whose u_j lies within that rounding
 # of a cumulative weight may flip; at most this many of 16,384 components
@@ -1163,16 +1172,61 @@ def gibbs_inputs(dev, B: int, L: int, masked: int, seed: int, Gb=None, r0=None) 
             torch.tensor(1.7, **f64), torch.tensor(0.4, **f64))
 
 
-def check_gibbs_kernel(args: tuple, tag: str, timed: bool) -> dict:
+def gibbs_reference(src: str) -> Callable:
+    """gibbs_block_update through an earlier version of csrc/gibbs_block.cu
+    (the same C entry points), built from `src` with the port's nvcc flags:
+    a callable with the wrapper's arguments, giving (xb, comp).  c goes to
+    global scratch by that version's own rule (4 B + 32 L bytes of shared
+    memory past the limit)."""
+    tag = hashlib.sha256(open(src, "rb").read()).hexdigest()[:16]
+    out = str(_build.BUILD_DIR / f"gibbs_block_reference-{tag}.so")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    r = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", out, src],
+                       capture_output=True, text=True)
+    check(r.returncode == 0,
+          f"the reference gibbs kernel {src} did not build:\n{r.stdout}{r.stderr}")
+    log(f"[gibbs] reference kernel {src} built in {time.perf_counter() - t0:.1f}s")
+    lib = ctypes.CDLL(out)
+    for name in ("gibbs_block_f32_launch", "gibbs_block_f64_launch"):
+        getattr(lib, name).argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong, ctypes.c_int]
+                                       + [ctypes.c_void_p] * 4)
+
+    def call(Gb, r0, xb0, mmask_b, u, z, pi, cvars, sigma_g, sigma_e):
+        B, L = xb0.shape[0], pi.shape[0]
+        xb = torch.empty_like(xb0)
+        comp = torch.empty(B, dtype=torch.int32, device=Gb.device)
+        scratch = (torch.empty(B, dtype=torch.float32, device=Gb.device)
+                   if 32 * L + 4 * B > SMEM_BYTES else None)
+        fn = getattr(lib, "gibbs_block_f64_launch" if xb0.dtype == torch.float64
+                     else "gibbs_block_f32_launch")
+        err = fn(*[t.data_ptr() for t in (Gb, r0, xb0, mmask_b, u, z, pi, cvars, sigma_g, sigma_e)],
+                 B, L, xb.data_ptr(), comp.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        _build.check_launch(err, f"reference gibbs_block at B={B}, L={L}")
+        return xb, comp
+    return call
+
+
+def check_gibbs_kernel(args: tuple, tag: str, timed: bool, ref: Callable | None = None) -> dict:
     """gibbs_block_update against its plain version on the same card
     tensors: the components equal, x within GIBBS_X_TOL of its largest
     value, masked markers at 0, bitwise repeatable; when timed, kernel and
     plain by CUDA events in turns (the kernel's samples are the mean of 5
-    back-to-back calls)."""
+    back-to-back calls), and the host's time a call.  With a reference kernel
+    (`gibbs_reference`), x and the components bitwise equal to its, and when
+    timed the two kernels in turns (reference, kernel, kernel, reference)."""
     B, L = args[2].shape[0], args[6].shape[0]
     x, k = gibbs_block_update(*args)
     px, pk = gibbs_block_update_plain(*args)
     torch.cuda.synchronize()
+    if ref is not None:
+        rx, rk = ref(*args)
+        torch.cuda.synchronize()
+        same = torch.equal(x, rx) and torch.equal(k, rk)
+        log(f"[gibbs] kernel {tag} B={B} L={L}: bitwise equal to the reference kernel {same}")
+        check(same, f"gibbs_block_update differs from the reference kernel at {tag} B={B} L={L}")
     err = float((x - px).abs().max())
     scale = float(px.abs().max())
     masked = args[3] == 0
@@ -1195,28 +1249,60 @@ def check_gibbs_kernel(args: tuple, tag: str, timed: bool) -> dict:
             f"it); plain {plain_ms:.3f} ms; runs {t_kern} / {t_plain}")
         rec.update(ms=ms, plain_ms=plain_ms, bound_ms=least_ms, bound_by=least_by,
                    library_ms=None)
+        # the host's time a call, enqueue only (its checks, the allocations
+        # and the launch): its share of a sweep's host time a block
+        host = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(GIBBS_HOST_CALLS):
+                gibbs_block_update(*args)
+            host.append((time.perf_counter() - t0) * 1e6 / GIBBS_HOST_CALLS)
+        torch.cuda.synchronize()
+        log(f"[gibbs] kernel {tag}: host time a call (enqueue, no synchronise) "
+            f"{np.median(host):.1f} us; runs {np.round(host, 1).tolist()}")
+        if ref is not None:
+            t_ref = [card_ms(lambda: ref(*args), calls=KERNEL_CALLS)]
+            t_new = [card_ms(lambda: gibbs_block_update(*args), calls=KERNEL_CALLS)
+                     for _ in range(2)]
+            t_ref.append(card_ms(lambda: ref(*args), calls=KERNEL_CALLS))
+            ref_ms, new_ms = float(np.median(t_ref)), float(np.median(t_new))
+            log(f"[gibbs] kernel {tag}: reference {ref_ms * 1e3:.1f} us, this kernel "
+                f"{new_ms * 1e3:.1f} us a block in turns ({ref_ms / new_ms:.2f}x); runs "
+                f"reference {t_ref}, kernel {t_new}")
     return rec
 
 
-def phase_gibbs_kernel(main: MainPath) -> dict:
+# ragged (B, L, masked markers) of phase 7's kernel check: tails of the
+# kernel's sub-blocks of 32 markers, one component a lane and lanes looping
+# over L past 32
+GIBBS_RAGGED = ((1, 2, 0), (33, 33, 2), (100, 6, 7), (257, 4, 9), (1500, 2, 30), (1500, 6, 0))
+
+
+def phase_gibbs_kernel(main: MainPath, reference: str = "") -> dict:
     """The kernel at the main path's shape, B = 256 and L = 4, on two real
     blocks of the main path's quantized design (block 0, timed, and a middle
-    one: their Grams, r0 = A_b^T y_resid of the cold start), then at ragged
-    shapes: B = 1, 100 and 1,500, L = 2 and 6, with masked markers.
+    one: their Grams, r0 = A_b^T y_resid of the cold start), then at the
+    GIBBS_RAGGED shapes; with `reference`, an earlier gibbs_block.cu, each
+    also bitwise against that kernel and block 0 timed against it in turns.
     Returns block 0's record with the largest error of all."""
     dm, y = main.dataset.dm, main.dataset.phen.y
     dev = dm.device
+    ref = gibbs_reference(reference) if reference else None
+    if ref is None:
+        log("[gibbs] no reference kernel given (--gibbs-reference): checked against plain only")
     y_resid = torch.as_tensor(y - y.mean(), dtype=torch.float32, device=dev)
     rec = None
     for b in (0, dm.m_pad // GIBBS_B // 2):
         d = gibbs._block_dm(dm, b, GIBBS_B)
         Gb = gibbs._quantized_gram(d, torch.tensor(dm.n, dtype=torch.float32, device=dev))
         args = gibbs_inputs(dev, GIBBS_B, GIBBS_L, 0, SEED + b, Gb=Gb, r0=atx(d, y_resid))
-        r = check_gibbs_kernel(args, f"north-star block {b}", timed=rec is None)
+        r = check_gibbs_kernel(args, f"north-star block {b}", timed=rec is None, ref=ref)
         rec = r if rec is None else {**rec, "max_abs_err": max(rec["max_abs_err"],
                                                                 r["max_abs_err"])}
-    for B, L, masked in ((1, 2, 0), (100, 6, 7), (1500, 2, 30), (1500, 6, 0)):
-        r = check_gibbs_kernel(gibbs_inputs(dev, B, L, masked, SEED + B), "ragged", timed=False)
+    for B, L, masked in GIBBS_RAGGED:
+        r = check_gibbs_kernel(gibbs_inputs(dev, B, L, masked, SEED + B), "ragged", timed=False,
+                               ref=ref)
         rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
     return rec
 
@@ -1314,6 +1400,17 @@ def phase_gibbs_main(dtype: str, main: MainPath, out_dir: str, sweeps: int) -> d
     cvars = torch.as_tensor(gibbs.decade_cvars(GIBBS_L)).to(dev)
     draws = gibbs.TorchDraws(SEED)
     y_dev = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    # where a sweep's time goes: the host's enqueue of the block loop (no
+    # synchronise) against the synced wall; close to it means host-bound
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, st = gibbs.gibbs_sweep(dm, grams, state, cvars, gibbs.TorchDraws(SEED), y_dev,
+                              block=GIBBS_B)
+    wall = time.perf_counter() - t0
+    enq = st.enqueue_s
+    log(f"[gibbs {dtype}] one more sweep: the host enqueued its {nb} blocks in {enq:.4f}s "
+        f"({enq * 1e6 / nb:.1f} us a block, no synchronise), wall {wall:.4f}s: enqueue "
+        f"{100 * enq / wall:.1f}% of the wall")
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -1409,6 +1506,9 @@ def main(argv=None) -> int:
     p.add_argument("--log-dir", default="",
                    help="keep the engine's logs here (default: a temporary "
                         "directory, removed at the end)")
+    p.add_argument("--gibbs-reference", default="", metavar="CU",
+                   help="an earlier gibbs_block.cu to hold the Gibbs kernel against in "
+                        "phase 7: bitwise, and timed in turns")
     args = p.parse_args(argv)
     dev = phase_device()
     with tempfile.TemporaryDirectory(prefix="vampomi_smoke_") as out_dir:
@@ -1440,7 +1540,7 @@ def main(argv=None) -> int:
         probit_counts = phase_probit_main(main8, log_dir, out_dir)
         for name in ("atx_int8", "ax_batch_int8", "atx_batch_int8"):  # both main paths
             counts[name] += probit_counts[name]
-        recs["gibbs_block_update"] = phase_gibbs_kernel(main8)
+        recs["gibbs_block_update"] = phase_gibbs_kernel(main8, args.gibbs_reference)
         gibbs_counts = phase_gibbs_main("int8", main8, out_dir, sweeps=3)
         for name in ("gibbs_block_update", "atx_int8", "ax_batch_int8"):  # and the sampler's
             counts[name] = counts.get(name, 0) + gibbs_counts[name]

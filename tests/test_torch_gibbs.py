@@ -328,6 +328,7 @@ def test_gibbs_sweep_matches_jax_from_one_state(problem, dtype):
                                    rtol=RTOL, err_msg=f)
     jh2, jm, jvg = jsampler.sweep_stats(jdm, jnew, jnp.asarray(y, dtype=JDT[dtype]))
     assert st.m_incl == int(jm) == int(tnew.comp.gt(0).sum())
+    assert st.enqueue_s > 0.0  # the host's block loop, timed by the sweep
     np.testing.assert_allclose([st.h2, st.vg, st.sigma_g, st.mu],
                                [float(jh2), float(jvg), float(jnew.sigma_g), float(jnew.mu)],
                                rtol=RTOL)

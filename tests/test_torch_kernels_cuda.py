@@ -394,7 +394,8 @@ def _gibbs_block_inputs(B, L, dtype, masked, dev, seed=0):
     g.manual_seed(seed)
     A = torch.randn((B, 300), device=dev, generator=g) / np.sqrt(300)  # the Gram made on the card
     mm = np.ones(B)
-    mm[rng.choice(B, masked, replace=False)] = 0.0
+    # masked: a count of markers drawn at random, or their indices
+    mm[rng.choice(B, masked, replace=False) if isinstance(masked, int) else list(masked)] = 0.0
     vec = {"u": rng.uniform(size=B), "z": rng.normal(size=B), "xb0": rng.normal(size=B) * 0.3,
            "mmask_b": mm}
     t = {k: torch.as_tensor(v, dtype=dtype, device=dev) for k, v in vec.items()}
@@ -410,12 +411,21 @@ def _gibbs_block_inputs(B, L, dtype, masked, dev, seed=0):
 @pytest.mark.parametrize("B,L,dtype,masked", [
     (1, 4, torch.float32, 0), (100, 2, torch.float32, 5), (256, 4, torch.float32, 3),
     (256, 6, torch.float64, 3), (1500, 4, torch.float32, 10), (1500, 2, torch.float64, 0),
-    (58_200, 4, torch.float32, 20)])  # 4 B + 32 L bytes past 232,448: c in global scratch
+    (58_200, 4, torch.float32, 20),  # c past the shared memory: in global scratch
+    # sub-blocks of 32 markers: ragged tails, one lane's component each and
+    # lanes looping over L past 32, masked markers on sub-block boundaries
+    (31, 4, torch.float32, 3), (32, 4, torch.float32, 0), (33, 4, torch.float32, 2),
+    (255, 4, torch.float32, 9), (257, 4, torch.float32, 5), (100, 1, torch.float32, 4),
+    (64, 33, torch.float32, 3), (100, 40, torch.float64, 6),
+    (257, 4, torch.float32, (0, 31, 32, 63, 64, 255, 256)), (256, 4, torch.float64, 0),
+    (64, 16, torch.float32, 2), (40, 32, torch.float32, 1),
+    (40, 140, torch.float32, 3)])  # L past the tables' room: the chain computes v itself
 def test_gibbs_block_update_kernel_matches_plain_on_card(cuda_device, B, L, dtype, masked):
     """The kernel against its plain version on the same card tensors: the
     components equal, x to 1e-6 of its largest value (f64 log and exp of
     two libraries), masked markers at 0; bitwise repeatable; one launch a
-    call."""
+    call.  The cases cover the kernel's sub-blocks of 32 markers (see
+    csrc/gibbs_block.cu)."""
     args = _gibbs_block_inputs(B, L, dtype, masked, cuda_device)
     before = gibbs_block_update.launches
     x, k = gibbs_block_update(*args)

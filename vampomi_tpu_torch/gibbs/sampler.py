@@ -40,6 +40,7 @@ with the affine corrections in f32, in JAX's order.
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -73,6 +74,9 @@ class SweepStats(NamedTuple):
     m_incl: int             # markers in a slab (masked)
     vg: float               # ||A x||^2 / N
     h2: float               # vg / (vg + sigma_e)
+    # host seconds until the block loop was enqueued (no synchronise): near
+    # the sweep's wall, the host and not the card sets the pace
+    enqueue_s: float
 
 
 class TorchDraws:
@@ -212,6 +216,7 @@ def gibbs_sweep(
     (vampomi_tpu/gibbs/sampler.py:178-262), and the new state's CSV numbers
     (with vg and h2 as vampomi_tpu sweep_stats gives them).  `state` is not
     modified."""
+    t0 = time.perf_counter()
     nb = dm.m_pad // block
     n = state.y_resid.shape[0]
     wd = dm.wd
@@ -228,6 +233,7 @@ def gibbs_sweep(
         y_resid -= ax(d, xb - xb0)                     # pass 2 over X_b
         x[sl] = xb
         comp[sl] = compb
+    enqueue_s = time.perf_counter() - t0
 
     # intercept: mu | rest ~ N(mean(y_resid + mu), sigma_e / N); vector math
     # in the work dtype, scalars f64 from the reduction on
@@ -261,7 +267,7 @@ def gibbs_sweep(
     new = new._replace(sigma_g=hyper[0], sigma_e=hyper[1], pi=hyper[2:])
     stats = SweepStats(mu=float(mu_h), sigma_g=float(sigma_g), sigma_e=float(sigma_e), pi=pi,
                        m_incl=int(round(m_incl)), vg=float(vg_h),
-                       h2=float(vg_h / (vg_h + sigma_e)))
+                       h2=float(vg_h / (vg_h + sigma_e)), enqueue_s=enqueue_s)
     return new, stats
 
 

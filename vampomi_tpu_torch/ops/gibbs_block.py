@@ -36,9 +36,19 @@ import torch
 from . import _build
 
 WORK_DTYPES = (torch.float32, torch.float64)
-# shared memory a block may use on Hopper (bytes): beyond it c lives in a
-# global scratch vector the wrapper allocates
+# shared memory a block may use on Hopper (bytes)
 SMEM_BYTES = 232_448
+
+
+def needs_scratch(B: int, L: int) -> bool:
+    """Whether c lives in a global scratch vector: the kernel's layout
+    (csrc/gibbs_block.cu) takes 19,712 + 72 L bytes, 1,536 L more for its
+    tables of v, a and sqrt(v) where they fit, and 4 B for c where that fits
+    too."""
+    base = 19_712 + 72 * L
+    if base + 1_536 * L <= SMEM_BYTES:
+        base += 1_536 * L
+    return base + 4 * B > SMEM_BYTES
 
 
 def gibbs_block_update_plain(Gb, r0, xb0, mmask_b, u, z, pi, cvars, sigma_g, sigma_e):
@@ -132,7 +142,7 @@ def gibbs_block_update(Gb, r0, xb0, mmask_b, u, z, pi, cvars, sigma_g, sigma_e):
     xb = torch.empty_like(xb0)
     comp = torch.empty(B, dtype=torch.int32, device=Gb.device)
     scratch = (torch.empty(B, dtype=torch.float32, device=Gb.device)
-               if 32 * L + 4 * B > SMEM_BYTES else None)
+               if needs_scratch(B, L) else None)
     lib = "gibbs_block_f64_launch" if xb0.dtype == torch.float64 else "gibbs_block_f32_launch"
     fn = _build.function("gibbs_block", lib, [ctypes.c_void_p] * 10
                          + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 4)
