@@ -7,7 +7,7 @@ Phases (each prints its own lines; any failure ends the run non-zero):
 
   0. device   — a CUDA card must be present; prints nvidia-smi's name and
                 power limit and torch's device name.
-  1. build    — builds the eleven kernel libraries from vampomi_tpu_torch/csrc,
+  1. build    — builds the fifteen kernel libraries from vampomi_tpu_torch/csrc,
                 one nvcc each, all started together.
   2. kernel   — each kernel against its plain PyTorch version and against f64
                 at its main-path shape (int8 X of the north star,
@@ -16,7 +16,11 @@ Phases (each prints its own lines; any failure ends the run non-zero):
                 seed) and at ragged shapes (the two X Ys kernels at K = 1,
                 2, 3, 8 with M not a multiple of the rows per warp and M
                 below it); bitwise repeatability; kernel and plain timed
-                with CUDA events in turns, beside the kernel's bound.
+                with CUDA events in turns, beside the kernel's bound; the
+                three bf16 kernels likewise on bf16 X of the north-star
+                shape (20 GiB, freed after) and at ragged shapes, each
+                beside cuBLAS's X @ V.to(bfloat16), a rounder function
+                (logged; not their library yardstick).
   2b. probe   — the five probe kernels (read floor, tensor cores) against
                 their plain versions and f64 at full and ragged shapes on the
                 same X, then the two measurement tools' entry functions at
@@ -32,7 +36,8 @@ Phases (each prints its own lines; any failure ends the run non-zero):
                 against the same port on the CPU at M = 16,384 x N = 2,048
                 (data_sim; 0/1 labels for probit), int8 and int4: eigen and
                 spectral for 4 iterations, cg for 3, the same p1 and probes;
-                then C = 2 covariates, once for each model (int8).
+                then C = 2 covariates, once for each model (int8); then
+                linear on the bf16 design.
   4. cli      — the CLI through files (N = 2,000 x M = 8,000), int8 and
                 int4, with eigen, spectral and cg (every output file must
                 exist, be finite, and the x1 correlation must rise); then
@@ -41,15 +46,28 @@ Phases (each prints its own lines; any failure ends the run non-zero):
                 solver, one of them with --C 2 --cov-file, and int4 eigen),
                 linear with --C 2, and test, predict and association_test
                 with --model bin_class on the probit eigen run's dumps.
+  4b. resume  — exact-state resume through the CLI at N = 2,000 x M = 8,000
+                (int8): linear with eigen, spectral and cg, probit with
+                eigen and cg; 8 iterations straight with --checkpoint-file
+                against 4 and --resume-file to 8: the CSVs and the dumps of
+                iterations 5-8 byte-identical (a file that is not is named
+                and held to rtol 1e-6).
   5. main     — the int8 main path at the north-star shape: a planted design
                 (1,024 causal markers, h2 = 0.8, prior fixed at the truth),
-                5 eigen iterations, 4 with --lmmse-solver auto (which must
-                resolve to spectral there) and 2 CG iterations (CG's A^T
-                pass through atx_batch_int8), each with the per-iteration
-                outputs on and then off; prints setup and per-iteration
-                seconds, peak memory and kernel launches, and checks from
-                the launch counts that every iteration went through the
-                kernels; then the spectral dense step timed alone by route.
+                every run with --eigen-cache: 4 iterations of
+                --lmmse-solver auto on the cold cache (which must resolve
+                to spectral there), 5 eigen iterations (which build the
+                factor and write the cache file, its write timed), 4 of auto
+                with the cache warm (which must log its upgrade to eigen,
+                load the file, and repeat the eigen run's iterations byte
+                for byte) and 2 CG iterations (CG's A^T pass through
+                atx_batch_int8), each with the per-iteration outputs on and
+                then off; then eigen with --checkpoint-file against without
+                (a checkpoint's cost an iteration); prints setup and
+                per-iteration seconds, peak memory and kernel launches, and
+                checks the launches of every run exactly (setup's A^T y,
+                the passes of each iteration and CG step); then the
+                spectral dense step timed alone by route.
   5b. modes   — the run modes at full width on that design and its dumps:
                 row_moments_int8 against its plain version (bitwise, timed);
                 SE, LOO and loo_std p-values, the LOO statistics of 4,096
@@ -88,11 +106,18 @@ Phases (each prints its own lines; any failure ends the run non-zero):
                 (nb kernel launches and nb passes each way a sweep), one
                 more sweep's host enqueue time against its wall, the host
                 syncs of one sweep.
+  8. bf16     — after the packed X is freed, the bf16 main path: the design
+                built on the card from seeded uniform values (f64 statistics
+                of the raw values, chunk by chunk; 20 GiB of bf16 X), 4
+                eigen, 4 auto (spectral) and 2 CG iterations with the
+                outputs on and off, launches checked exactly per run; then
+                SE, LOO, loo_std, test and predict on its dumps.
+  9. doctor   — python -m vampomi_tpu_torch.doctor in a subprocess: exit 0.
 
-The line before the last is the kernel record {"kernels": [...]}: fourteen
+The line before the last is the kernel record {"kernels": [...]}: seventeen
 kernels standing for the twelve TPU kernels of the repo, the int8 einsum
-of CG's A^T pass, the LOO pass's row reductions and the Gibbs sampler's
-block update, each with its bound
+of CG's A^T pass, the LOO pass's row reductions, the Gibbs sampler's
+block update and the bf16 design's three einsums, each with its bound
 (the larger of its bytes over 3.35 TB/s and its operations over the peak
 rate of their type, from this run's shapes) and its one-call PyTorch
 yardstick where one exists; the last line is {"ok": true, "device":
@@ -137,8 +162,13 @@ from vampomi_tpu_torch.io.csv_writer import read_positional_csv  # noqa: E402
 from vampomi_tpu_torch.io.phen import Phenotype  # noqa: E402
 from vampomi_tpu_torch.modes import association, predict, test_mode  # noqa: E402
 from vampomi_tpu_torch.ops import _build  # noqa: E402
+from vampomi_tpu_torch.engine.checkpoint import load_checkpoint  # noqa: E402
 from vampomi_tpu_torch.ops.atx_int8 import (  # noqa: E402
     atx_batch_int8, atx_batch_int8_plain, atx_int8, atx_int8_plain,
+)
+from vampomi_tpu_torch.ops.bf16 import (  # noqa: E402
+    atx_batch_bf16, atx_batch_bf16_plain, atx_bf16, atx_bf16_plain, ax_batch_bf16,
+    ax_batch_bf16_plain,
 )
 from vampomi_tpu_torch.ops.broadcast import (  # noqa: E402
     ax_batch_int8, ax_batch_int8_plain, ax_batch_packed4, ax_batch_packed4_plain,
@@ -154,7 +184,8 @@ from vampomi_tpu_torch.ops.mxu import (  # noqa: E402
     bf16_round,
 )
 from vampomi_tpu_torch.ops.operator import (  # noqa: E402
-    PACKED4_DTYPE, atx, ax, ax_batch, build_design, design_from_codes, design_from_packed,
+    PACKED4_DTYPE, QUANTIZED, atx, ax, ax_batch, build_design, design_from_codes,
+    design_from_packed, design_from_raw_rows,
 )
 from vampomi_tpu_torch.ops.packed4 import (  # noqa: E402
     atx_batch_packed4, atx_batch_packed4_plain, atx_packed4, atx_packed4_plain,
@@ -198,6 +229,7 @@ PARITY_LABELS = 3
 # within the spread of the CG probes.
 X1_MIN_INT4 = 0.3
 DTYPES = {"int8": torch.int8, "int4": PACKED4_DTYPE}
+PARITY_DTYPES = {**DTYPES, "bf16": torch.bfloat16}
 
 
 class Kernel(NamedTuple):
@@ -262,6 +294,25 @@ KERNELS = {
                                  CSRC + "gibbs_block.cu",
                                  "vampomi_tpu/gibbs/sampler.py:128 (XLA fori_loop, no Pallas "
                                  "kernel)", "gibbs"),
+    # the bf16 design's passes: XLA einsums in JAX, no Pallas kernel; no
+    # PyTorch call computes them (a bf16 matmul rounds the vector and the
+    # output, BF16_ROUNDER below)
+    "atx_bf16": Kernel(atx_bf16, atx_bf16_plain, CSRC + "atx_bf16.cu",
+                       "vampomi_tpu/ops/operator.py:261 (XLA einsum, no Pallas kernel)", "vec"),
+    "atx_batch_bf16": Kernel(atx_batch_bf16, atx_batch_bf16_plain, CSRC + "atx_batch_bf16.cu",
+                             "vampomi_tpu/ops/operator.py:334 (XLA einsum, no Pallas kernel)",
+                             "rows"),
+    "ax_batch_bf16": Kernel(ax_batch_bf16, ax_batch_bf16_plain, CSRC + "ax_batch_bf16.cu",
+                            "vampomi_tpu/ops/operator.py:186 (XLA einsum, no Pallas kernel)",
+                            "cols"),
+}
+# one cuBLAS call beside each bf16 kernel, timed and logged but not its
+# library yardstick: X @ V.to(bfloat16) rounds V and the output to bf16, a
+# rounder function than the kernel's
+BF16_ROUNDER = {
+    "atx_bf16": lambda X, v: X @ v.to(torch.bfloat16),
+    "atx_batch_bf16": lambda X, V: X @ V.to(torch.bfloat16),
+    "ax_batch_bf16": lambda X, W: X.T @ W.to(torch.bfloat16),
 }
 LIBRARIES = list(dict.fromkeys(os.path.basename(k.source)[:-3] for k in KERNELS.values()))
 
@@ -373,7 +424,7 @@ def check_kernel(name: str, X: torch.Tensor, V: torch.Tensor, timed: bool) -> di
     rec = dict(max_abs_err=max_abs)
     if timed:
         ms, plain_ms, t_kern, t_plain = in_turns(lambda: run(kern), lambda: run(plain))
-        gb = X.numel() / 1e9
+        gb = X.numel() * X.element_size() / 1e9
         least_ms, least_by = bound(name, X, V.shape[1])
         log(f"[kernel] {name} {shape}: {ms:.3f} ms ({gb / ms * 1e3:.1f} GB/s of X; bound "
             f"{least_ms:.3f} ms by {least_by}, {100 * least_ms / ms:.1f}% of it); plain "
@@ -382,6 +433,12 @@ def check_kernel(name: str, X: torch.Tensor, V: torch.Tensor, timed: bool) -> di
             f"{t_plain}")
         rec.update(ms=ms, plain_ms=plain_ms, bound_ms=least_ms, bound_by=least_by,
                    library_ms=None)
+        if name in BF16_ROUNDER:
+            rounder = BF16_ROUNDER[name]
+            Vr = V[:, 0].contiguous() if k.kind == "vec" else V
+            r_ms = card_ms(lambda: rounder(X, Vr), calls=KERNEL_CALLS)
+            log(f"[kernel] {name} {shape}: cuBLAS X @ V.to(bfloat16) {r_ms:.3f} ms (not the "
+                f"same function: it rounds V and the output to bf16; library_ms stays null)")
     return rec
 
 
@@ -430,8 +487,35 @@ def phase_kernel(dev: str) -> tuple[torch.Tensor, torch.Tensor, dict]:
             Xr = random_codes(m, n if dtype == torch.int8 else n // 2, dtype, SEED + 6, dev)
             for k in (1, 2, 3, 8):
                 check_kernel(name, Xr, rhs(n, k), timed=False)
+    recs.update(check_bf16_kernels(dev, rhs))
     check_long_rows(dev)
     return X8, X4, recs
+
+
+def check_bf16_kernels(dev: str, rhs) -> dict:
+    """The three bf16 kernels on bf16 X of the north-star shape (20 GiB,
+    made on the card and freed after) at the K the main path gives each,
+    timed, and at ragged shapes: N % 8 != 0 (the unit path), M not a
+    multiple of the rows per warp and below it, N = 8,192 at K = 8 (Ys
+    through the read-only cache)."""
+    X16 = random_codes(NS_M, NS_N, torch.bfloat16, SEED + 7, dev)
+    recs = {}
+    for name, rows, ks in (("atx_bf16", NS_N, [1]), ("ax_batch_bf16", NS_M, [1, 2]),
+                           ("atx_batch_bf16", NS_N, [2])):
+        for k in ks:
+            r = check_kernel(name, X16, rhs(rows, k), timed=True)
+            if name in recs:
+                r["max_abs_err"] = max(r["max_abs_err"], recs[name]["max_abs_err"])
+            recs[name] = r
+    del X16
+    torch.cuda.empty_cache()
+    for m, n in ((1000, 1001), (1000, 1002), (1003, 1024), (3, 1002), (1003, 8192), (3, 8192)):
+        Xr = random_codes(m, n, torch.bfloat16, SEED + 8, dev)
+        check_kernel("atx_bf16", Xr, rhs(n, 1), timed=False)
+        for k in (1, 2, 3, 8):
+            check_kernel("ax_batch_bf16", Xr, rhs(m, k), timed=False)
+            check_kernel("atx_batch_bf16", Xr, rhs(n, k), timed=False)
+    return recs
 
 
 def check_long_rows(dev: str) -> None:
@@ -572,7 +656,7 @@ def run_pair(devices, dtype: str, m: int, n: int, log_dir: str, out_dir: str,
     out = {}
     for solver, k in iters.items():
         for dev in devices:
-            dm = build_design(fx.X.T, compute_dtype=DTYPES[dtype], device=dev)
+            dm = build_design(fx.X.T, compute_dtype=PARITY_DTYPES[dtype], device=dev)
             name = f"parity_{model}_{dtype}_{solver}_c{c}_{dev}"
             cfg = RunConfig(out_dir=out_dir, out_name=name, iterations=k, model=model,
                             lmmse_solver=solver, stop_criteria_thr=0.0, device=dev,
@@ -809,6 +893,95 @@ def phase_cli_probit(dev: str, log_dir: str, n: int = 2_000, m: int = 8_000,
             f"written and finite")
 
 
+# (model, solver) of the resume phase, int8
+RESUME_RUNS = (("linear", "eigen"), ("linear", "spectral"), ("linear", "cg"),
+               ("bin_class", "eigen"), ("bin_class", "cg"))
+
+
+def phase_resume(dev: str, log_dir: str, n: int = 2_000, m: int = 8_000, iters: int = 8,
+                 split: int = 4) -> None:
+    """Exact-state resume through the CLI (int8, each (model, solver) of
+    RESUME_RUNS): an uninterrupted run of `iters` iterations with
+    --checkpoint-file, and in another directory a run of `split` iterations
+    with --checkpoint-file followed by --resume-file to `iters`.  The CSVs
+    (whole: the resumed run appends) and the .bin dumps of iterations
+    split+1..iters must be byte-identical to the uninterrupted run's; a file
+    that is not is named and held to rtol 1e-6 (a library call that does
+    not repeat its bits)."""
+    with tempfile.TemporaryDirectory(prefix="vampomi_resume_") as d:
+        fx = simulate_iid(n=n, m=m, lam=0.1, h2=0.8, seed=SEED)
+        paths = write_fixture(fx, d, "ex")
+        y01 = (fx.X @ fx.beta + np.random.default_rng(SEED + 10).normal(size=n) > 0).astype(int)
+        binphen = os.path.join(d, "ex_bin.phen")
+        with open(binphen, "w") as f:
+            f.writelines(f"{i} {i} {v}\n" for i, v in enumerate(y01))
+        t0 = time.perf_counter()
+        for model, solver in RESUME_RUNS:
+            phen, hyper = ((binphen, ["--rho", "0.3", "--gam1", "1e-2"]) if model == "bin_class"
+                           else (paths["phen"], ["--h2", "0.8"]))
+            tag = f"{model}_{solver}"
+
+            def run(sub: str, k: int, extra: list[str], what: str) -> None:
+                os.makedirs(sub, exist_ok=True)
+                argv = ["--run-mode", "infere", "--model", model, "--meth-file", paths["bin"],
+                        "--phen-file", phen, "--true-signal-file", paths["ts"], "--N", str(n),
+                        "--Mt", str(m), "--out-dir", sub, "--out-name", "r", "--iterations",
+                        str(k), "--stop-criteria-thr", "0", "--probs", "0.9,0.07,0.03",
+                        "--vars", "0.0,0.001,0.01", "--device", dev, "--compute-dtype", "int8",
+                        "--lmmse-solver", solver, "--seed", str(SEED)] + hyper + extra
+                with engine_log(log_dir, f"resume_{tag}_{what}"):
+                    check(cli.main(argv) == 0, f"resume {tag} {what}: non-zero exit")
+
+            full, part = os.path.join(d, f"{tag}_full"), os.path.join(d, f"{tag}_part")
+            run(full, iters, ["--checkpoint-file", os.path.join(full, "ck.npz")], "full")
+            run(part, split, ["--checkpoint-file", os.path.join(part, "ck.npz")], "first")
+            check(load_checkpoint(os.path.join(part, "ck.npz"))["iteration"] == split,
+                  f"resume {tag}: checkpoint not at iteration {split}")
+            run(part, iters, ["--resume-file", os.path.join(part, "ck.npz")], "resumed")
+            names = [f"r_{c}.csv" for c in ("params", "metrics", "prior")]
+            names += [f"r_{k}it_{i}.bin" for k in ("", "r1_") for i in range(split + 1, iters + 1)]
+            apart = []
+            for f in names:
+                a, b = (os.path.join(x, f) for x in (full, part))
+                if _bytes(a) == _bytes(b):
+                    continue
+                if f.endswith(".csv"):
+                    va, vb = (np.asarray(read_positional_csv(x)) for x in (a, b))
+                else:
+                    va, vb = read_bin_slab(a, m), read_bin_slab(b, m)
+                err = float(np.max(np.abs(va - vb) / np.maximum(np.abs(va), 1e-30)))
+                apart.append(f"{f} (max rel diff {err:.2e})")
+                check(va.shape == vb.shape and err <= 1e-6,
+                      f"resume {tag}: {f} differs past rtol 1e-6 ({err:.2e})")
+            log(f"[resume] {tag} int8 N={n} M={m}: {split} + {iters - split} iterations against "
+                f"{iters} straight: " + (f"{len(names)} files byte-identical (3 CSVs, the dumps "
+                                         f"of iterations {split + 1}-{iters})" if not apart else
+                                         "NOT byte-identical, within rtol 1e-6: "
+                                         + ", ".join(apart)))
+        log(f"[resume] done in {time.perf_counter() - t0:.1f}s")
+
+
+def phase_doctor() -> None:
+    """`python -m vampomi_tpu_torch.doctor` in a subprocess: exit 0."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "vampomi_tpu_torch.doctor"], capture_output=True,
+                         text=True, timeout=900, cwd=os.path.dirname(os.path.abspath(__file__)))
+    for line in out.stdout.strip().splitlines():
+        log(f"[doctor] {line}")
+    check(out.returncode == 0, f"the doctor exited {out.returncode}: {out.stderr[-2000:]}")
+    log(f"[doctor] exit 0 in {time.perf_counter() - t0:.1f}s")
+
+
+def bf16_design(dev: str):
+    """The bf16 north-star design built on the card from seeded uniform
+    values (design_from_raw_rows: f64 statistics of the raw values, the
+    values stored as bf16), 20 GiB of X."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 9)
+    return design_from_raw_rows(
+        NS_M, NS_N, lambda lo, hi: torch.rand((hi - lo, NS_N), device=dev, generator=g), dev)
+
+
 def planted_problem(dm, causal: int, h2: float = 0.8):
     """y = A beta + e in file units on the design dm of codes made on the card."""
     m, n = dm.m_pad, int(dm.n)
@@ -824,16 +997,21 @@ def planted_problem(dm, causal: int, h2: float = 0.8):
     return y, beta, prior
 
 
-# kernels each main-path run must launch at least once per iteration (the
-# A^T y kernels once more, for the constant A^T y of the setup); "auto"
-# resolves to spectral at the north star (N >= 2048 and Mt >= 4N)
-MAIN_KERNELS = {
-    ("int8", "eigen"): ("atx_int8", "ax_batch_int8"),
-    ("int8", "auto"): ("atx_int8", "ax_batch_int8"),
-    ("int8", "cg"): ("atx_int8", "ax_batch_int8", "atx_batch_int8"),
-    ("int4", "eigen"): ("atx_packed4", "ax_batch_packed4"),
-    ("int4", "cg"): ("atx_packed4", "ax_batch_packed4", "atx_batch_packed4"),
-}
+# the kernels' suffix for each design of the main path
+MAIN_SUFFIX = {"int8": "int8", "int4": "packed4", "bf16": "bf16"}
+# (label, solver, iterations, the solver that must run)
+MAIN_RUNS = (("eigen", "eigen", 5, "eigen"), ("cg", "cg", 2, "cg"))
+# the int8 path: a cold auto, an eigen run that writes the eigen cache, auto
+# again with the cache warm (eigen, its factor loaded), CG
+MAIN_RUNS_INT8 = (("auto", "auto", 4, "spectral"), ("eigen", "eigen", 5, "eigen"),
+                  ("auto_warm", "auto", 4, "eigen"), ("cg", "cg", 2, "cg"))
+# bf16: eigen 4 iterations, not 5: on this design the trajectory's x1
+# correlation peaks at iteration 3 and the noise-precision EM has driven it
+# below its start (0) by iteration 5 (0, 0.453, 0.656, 0.289, -0.138 on an
+# NVIDIA H100 80GB HBM3 at 700 W; the int8 design's ends at 0.004), the
+# collapse at M/N >= 16 of EM_STABILITY.json
+MAIN_RUNS_BF16 = (("eigen", "eigen", 4, "eigen"), ("auto", "auto", 4, "spectral"),
+                  ("cg", "cg", 2, "cg"))
 
 
 class MainPath(NamedTuple):
@@ -842,41 +1020,62 @@ class MainPath(NamedTuple):
     beta: np.ndarray        # the planted effects, file units
 
 
-def phase_main(dtype: str, X: torch.Tensor, log_dir: str, out_dir: str, x1_min: float,
-               solvers=(("eigen", 5), ("cg", 2)), cg_max_iter: int = 50) -> MainPath:
-    """The main path on a planted design over the codes X, prior fixed at
-    the truth, one causal marker per 1,024: each (solver, iterations) of
-    `solvers` once with the per-iteration outputs (CSV rows, .bin dumps)
-    and once without, for the wall without the dumps and the kernel
-    launches of a run.  Launches are counted from 0 set just before the
-    path and read just after."""
-    dev = X.device
+def exact_launches(dtype: str, solver: str, k: int, steps: list[int]) -> dict:
+    """The launches of a linear run of k iterations: the setup's A^T y and
+    one A^T pass an iteration, and the two-column ax_batch pass (exact
+    solvers); CG adds, an iteration, ax of x1, x2 and the probe's trace
+    pass, the initial residual's pass each way, then one pass each way a
+    CG step (`steps`, from the run's trace)."""
+    sfx = MAIN_SUFFIX[dtype]
+    atx_k, ax_k, rows_k = (f"atx_{sfx}", f"ax_batch_{sfx}", f"atx_batch_{sfx}")
+    if solver != "cg":
+        return {atx_k: k + 1, ax_k: k}
+    return {atx_k: k + 1, ax_k: sum(steps) + 4 * k, rows_k: sum(steps) + k}
+
+
+def phase_main(dtype: str, build: Callable, log_dir: str, out_dir: str, x1_min: float,
+               runs=MAIN_RUNS, cg_max_iter: int = 50, cache: str = "",
+               checkpoint_cost: bool = False) -> MainPath:
+    """The main path on a planted design (build() makes it on the card),
+    prior fixed at the truth, one causal marker per 1,024: each run of
+    `runs` once with the per-iteration outputs (CSV rows, .bin dumps) and
+    once without, for the wall without the dumps and the kernel launches of
+    a run, checked exactly (exact_launches).  With `cache`, every run
+    passes --eigen-cache; a run labelled *_warm repeats the eigen run's
+    iterations bitwise.  With `checkpoint_cost`, one more eigen run without
+    outputs and with --checkpoint-file gives a checkpoint's cost an
+    iteration.  Launches are counted from 0 set just before the path and
+    read just after."""
     t0 = time.perf_counter()
-    dm = design_from_packed(X) if dtype == "int4" else design_from_codes(X)
+    dm = build()
+    dev = dm.device
     causal = dm.m_pad // 1024
     y, beta, prior = planted_problem(dm, causal)
     torch.cuda.synchronize()
     m, n = dm.m_pad, int(dm.n)
-    log(f"[main {dtype}] planted design M={m} N={n} (M/N={m / n:.0f}, "
-        f"{X.numel() / 2**30:.2f} GiB of X), {causal} causal, h2=0.8, prior fixed at the "
-        f"truth: built in {time.perf_counter() - t0:.1f}s")
+    gib = dm.X.numel() * dm.X.element_size() / 2**30
+    log(f"[main {dtype}] planted design M={m} N={n} (M/N={m / n:.0f}, {gib:.2f} GiB of X), "
+        f"{causal} causal, h2=0.8, prior fixed at the truth: built in "
+        f"{time.perf_counter() - t0:.1f}s")
     W = torch.randn((m, 2), device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
     ms = card_ms(lambda: ax_batch(dm, W), reps=5, warmup=1, calls=KERNEL_CALLS)
-    log(f"[main {dtype}] operator ax_batch (K=2): {ms:.3f} ms ({X.numel() / ms / 1e6:.1f} GB/s "
-        f"of X)")
+    log(f"[main {dtype}] operator ax_batch (K=2): {ms:.3f} ms "
+        f"({dm.X.numel() * dm.X.element_size() / ms / 1e6:.1f} GB/s of X)")
     del W
     reset_launches()
-    for solver, k in solvers:
-        cfg = RunConfig(out_dir=out_dir, out_name=f"main_{dtype}_{solver}", iterations=k,
+    off_secs = {}
+    for label, solver, k, expect in runs:
+        name = f"main_{dtype}_{label}"
+        cfg = RunConfig(out_dir=out_dir, out_name=name, iterations=k,
                         lmmse_solver=solver, stop_criteria_thr=0.0, learn_vars=0,
                         learn_prior_delay=k, CG_max_iter=cg_max_iter, device=str(dev),
-                        seed=SEED, **prior)
+                        seed=SEED, eigen_cache=cache, **prior)
         torch.cuda.reset_peak_memory_stats(dev)
         before = launches()
-        with engine_log(log_dir, f"main_{dtype}_{solver}"):
+        with engine_log(log_dir, name):
             res = infere_linear(dm, y, cfg, true_signal=beta)
         torch.cuda.synchronize()
-        count = {name: c - before[name] for name, c in launches().items() if c > before[name]}
+        count = {key: c - before[key] for key, c in launches().items() if c > before[key]}
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         mh = np.asarray(res.metrics_history)
         secs = res.iter_seconds
@@ -885,46 +1084,99 @@ def phase_main(dtype: str, X: torch.Tensor, log_dir: str, out_dir: str, x1_min: 
         extra = f"gram {setup['gram']:.3f}s, " if "gram" in setup else ""
         if "eigh" in setup:
             extra += f"eigh {setup['eigh']:.3f}s (residual {setup['eigen_resid']:.2e}), "
-        log(f"[main {dtype}] {solver} (ran {res.solver}): {extra}A^T y {setup['aty']:.4f}s; "
-            f"per-iteration seconds {[round(s, 4) for s in secs]}; {1.0 / np.mean(steady):.2f} "
+        for key in ("eigen_cache_write", "eigen_cache_load"):
+            if key in setup:
+                extra += f"{key.replace('_', ' ')} {setup[key]:.3f}s, "
+        log(f"[main {dtype}] {label} (ran {res.solver}): {extra}A^T y {setup['aty']:.4f}s; "
+            f"per-iteration seconds {[round(t, 4) for t in secs]}; {1.0 / np.mean(steady):.2f} "
             f"it/s over iterations 2..{len(secs)}; peak memory {peak:.2f} GiB; kernel launches "
             f"{count}; x1 corr {np.round(mh[:, 1], 4).tolist()}")
-        check(res.solver == ("spectral" if solver == "auto" else solver),
-              f"{dtype} {solver}: the solver that ran was {res.solver}")
+        check(res.solver == expect, f"{dtype} {label}: the solver that ran was {res.solver}, "
+                                    f"want {expect}")
+        if cache and res.solver == "eigen":
+            loaded = "eigen_cache_load" in setup
+            check(loaded == (label != "eigen"), f"{dtype} {label}: eigen cache "
+                                                f"{'loaded' if loaded else 'built'}")
         check(np.all(np.isfinite(mh)) and np.all(np.isfinite(res.x1_hat_scaled)),
-              f"{dtype} {solver}: outputs not finite")
-        check(mh[-1, 1] > mh[0, 1], f"{dtype} {solver}: x1 correlation did not rise")
+              f"{dtype} {label}: outputs not finite")
+        check(mh[-1, 1] > mh[0, 1], f"{dtype} {label}: x1 correlation did not rise")
         # the trajectory recovers signal first; at M/N >= 100 the noise-
         # precision EM then drives it down in the JAX engine too (PERF.md)
         check(mh[:, 1].max() > x1_min,
-              f"{dtype} {solver}: x1 correlation never passed {x1_min}")
+              f"{dtype} {label}: x1 correlation never passed {x1_min}")
         for i in range(1, k + 1):
             check(bool(np.all(np.isfinite(read_bin_slab(
-                os.path.join(out_dir, f"main_{dtype}_{solver}_it_{i}.bin"), m)))),
-                "dump not finite")
-        for name in MAIN_KERNELS[(dtype, solver)]:
-            need = k + 1 if name in ("atx_int8", "atx_packed4") else k  # + A^T y once
-            check(count.get(name, 0) >= need,
-                  f"{dtype} {solver}: {name} launched {count.get(name, 0)} times in {k} "
-                  f"iterations, want >= {need}")
+                os.path.join(out_dir, f"{name}_it_{i}.bin"), m)))), "dump not finite")
+        steps = (_trace_steps(os.path.join(out_dir, f"{name}_trace.jsonl"))
+                 if res.solver == "cg" else [])
+        want = exact_launches(dtype, res.solver, k, steps)
+        check(count == want, f"{dtype} {label}: launches {count}, want {want}")
+        if label.endswith("_warm"):
+            with open(os.path.join(log_dir, f"{name}.log")) as f:
+                narration = f.read()
+            check("upgraded from spectral" in narration and "eigenbasis of K loaded" in narration,
+                  f"{dtype} {label}: no upgrade to eigen or no cache load in the log")
+            warm_equals_eigen(out_dir, dtype, label, k)
         before = launches()
-        with engine_log(log_dir, f"main_{dtype}_{solver}_off"):
+        with engine_log(log_dir, f"{name}_off"):
             off = infere_linear(dm, y, cfg, true_signal=beta, write_outputs=False)
         torch.cuda.synchronize()
-        count = {name: c - before[name] for name, c in launches().items() if c > before[name]}
+        count = {key: c - before[key] for key, c in launches().items() if c > before[key]}
         mo = np.asarray(off.metrics_history)
         check(mo.shape == mh.shape and np.all(np.isfinite(mo)),
-              f"{dtype} {solver}, outputs off: bad shapes or values")
-        log(f"[main {dtype}] {solver}, outputs off: per-iteration seconds "
-            f"{[round(s, 4) for s in off.iter_seconds]}; kernel launches {count} in {k} "
+              f"{dtype} {label}, outputs off: bad shapes or values")
+        want = exact_launches(dtype, off.solver, k, steps)
+        check(count == want, f"{dtype} {label}, outputs off: launches {count}, want {want}")
+        off_secs[label] = off.iter_seconds
+        log(f"[main {dtype}] {label}, outputs off: per-iteration seconds "
+            f"{[round(t, 4) for t in off.iter_seconds]}; kernel launches {count} in {k} "
             f"iterations and the setup's A^T y; max abs diff of the metrics against the run "
             f"with outputs {float(np.abs(mo - mh).max()):.3g}")
         if res.solver == "spectral":
-            params = read_positional_csv(os.path.join(out_dir, f"main_{dtype}_{solver}_params.csv"))
+            params = read_positional_csv(os.path.join(out_dir, f"{name}_params.csv"))
             spectral_routes(dm, tau=params[-1][5], gam2=params[-1][4], tag=f"main {dtype}")
+    if checkpoint_cost:
+        k = next(r[2] for r in runs if r[0] == "eigen")
+        ck = os.path.join(out_dir, f"ck_{dtype}.npz")
+        cfg = RunConfig(out_dir=out_dir, out_name=f"main_{dtype}_ck", iterations=k,
+                        lmmse_solver="eigen", stop_criteria_thr=0.0, learn_vars=0,
+                        learn_prior_delay=k, device=str(dev), seed=SEED, eigen_cache=cache,
+                        checkpoint_file=ck, **prior)
+        with engine_log(log_dir, f"main_{dtype}_ck"):
+            res = infere_linear(dm, y, cfg, true_signal=beta, write_outputs=False)
+        on, off = np.median(res.iter_seconds[1:]), np.median(off_secs["eigen"][1:])
+        with_ck = [round(t, 4) for t in res.iter_seconds]
+        without = [round(t, 4) for t in off_secs["eigen"]]
+        log(f"[main {dtype}] eigen with --checkpoint-file, outputs off: per-iteration seconds "
+            f"{with_ck} against {without} without: a checkpoint costs {1e3 * (on - off):.2f} ms "
+            f"an iteration (medians of iterations 2..{k}; the file {os.path.getsize(ck)} bytes, "
+            f"written on the IO thread)")
+        check(load_checkpoint(ck)["iteration"] == k, f"{dtype}: checkpoint not at iteration {k}")
     ds = Dataset(dm=dm, phen=Phenotype(y=y, intercept=0.0, scale=1.0), covariates=None,
-                 qscale=np.ones(m))  # the codes are the data: scale 1
+                 qscale=np.ones(m) if dm.X.dtype in QUANTIZED else None)  # codes: scale 1
     return MainPath(launches(), ds, beta)
+
+
+def _bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def warm_equals_eigen(out_dir: str, dtype: str, label: str, k: int) -> None:
+    """The run with the warm cache against the eigen run that wrote it: the
+    params, metrics and prior rows of its k iterations and the dumps of
+    each, byte for byte (the loaded factor is the saved one)."""
+    warm, cold = (os.path.join(out_dir, f"main_{dtype}_{t}") for t in (label, "eigen"))
+    for csv in ("params", "metrics", "prior"):
+        a = read_positional_csv(f"{warm}_{csv}.csv")
+        check(a == read_positional_csv(f"{cold}_{csv}.csv")[:k],
+              f"{dtype} {label}: {csv} rows differ from the eigen run's")
+    for i in range(1, k + 1):
+        for kind in ("it", "r1_it"):
+            check(_bytes(f"{warm}_{kind}_{i}.bin") == _bytes(f"{cold}_{kind}_{i}.bin"),
+                  f"{dtype} {label}: {kind}_{i}.bin differs")
+    log(f"[main {dtype}] {label}: its {k} iterations byte-identical to the eigen run's (CSV rows "
+        f"and dumps)")
 
 
 def spectral_routes(dm, tau: float, gam2: float, tag: str) -> None:
@@ -1030,7 +1282,8 @@ def phase_probit_main(main: MainPath, log_dir: str, out_dir: str,
 
 
 MODE_KERNELS = {"int8": ("row_moments_int8", "atx_int8", "ax_batch_int8"),
-                "int4": ("row_moments_packed4", "atx_packed4", "ax_batch_packed4")}
+                "int4": ("row_moments_packed4", "atx_packed4", "ax_batch_packed4"),
+                "bf16": (None, "atx_bf16", "ax_batch_bf16")}  # f64 moments in torch
 
 
 def phase_modes(dtype: str, main: MainPath, out_dir: str, est: str, r1: str, gam1: float,
@@ -1046,19 +1299,21 @@ def phase_modes(dtype: str, main: MainPath, out_dir: str, est: str, r1: str, gam
     dm = ds.dm
     m, n = dm.m_pad, int(dm.n)
     name = MODE_KERNELS[dtype][0]
-    kn = KERNELS[name]
-    got, want = kn.fn(dm.X), kn.plain(dm.X)
-    check(torch.equal(got, want), f"{name} differs from its plain version at full shape")
-    check(torch.equal(got, kn.fn(dm.X)), f"{name} not bitwise repeatable")
-    ms, plain_ms, t_kern, t_plain = in_turns(lambda: kn.fn(dm.X), lambda: kn.plain(dm.X))
-    least_ms, least_by = bound(name, dm.X, 1)
-    log(f"[modes {dtype}] {name} X {tuple(dm.X.shape)}: bitwise equal to its plain version and "
-        f"repeatable; {ms:.3f} ms ({dm.X.numel() / ms / 1e6:.1f} GB/s of X; bound {least_ms:.3f} "
-        f"ms by {least_by}, {100 * least_ms / ms:.1f}% of it); plain {plain_ms:.3f} ms; runs "
-        f"{t_kern} / {t_plain}")
-    rec = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=least_ms, bound_by=least_by,
-               library_ms=None)
-    del got, want
+    recs = {}
+    if name is not None:
+        kn = KERNELS[name]
+        got, want = kn.fn(dm.X), kn.plain(dm.X)
+        check(torch.equal(got, want), f"{name} differs from its plain version at full shape")
+        check(torch.equal(got, kn.fn(dm.X)), f"{name} not bitwise repeatable")
+        ms, plain_ms, t_kern, t_plain = in_turns(lambda: kn.fn(dm.X), lambda: kn.plain(dm.X))
+        least_ms, least_by = bound(name, dm.X, 1)
+        log(f"[modes {dtype}] {name} X {tuple(dm.X.shape)}: bitwise equal to its plain version "
+            f"and repeatable; {ms:.3f} ms ({dm.X.numel() / ms / 1e6:.1f} GB/s of X; bound "
+            f"{least_ms:.3f} ms by {least_by}, {100 * least_ms / ms:.1f}% of it); plain "
+            f"{plain_ms:.3f} ms; runs {t_kern} / {t_plain}")
+        recs[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=least_ms,
+                          bound_by=least_by, library_ms=None)
+        del got, want
 
     cfg = RunConfig(out_dir=out_dir, out_name=f"modes_{dtype}", N=n, Mt=m, N_test=n, gam1=gam1,
                     r1_file=r1, estimate_file=est, device=str(dm.device))
@@ -1086,8 +1341,11 @@ def phase_modes(dtype: str, main: MainPath, out_dir: str, est: str, r1: str, gam
     sumx, sumsqx, xy = association._loo_stats(dm, y_mod)
     rows = np.sort(np.random.default_rng(SEED).choice(m, 4096, replace=False))
     C = codes64(dm.X[torch.as_tensor(rows, device=dm.device)]).cpu().numpy()
-    check(np.array_equal(sumx[rows], C.sum(axis=1))
-          and np.array_equal(sumsqx[rows], (C * C).sum(axis=1)),
+    # integer codes sum exactly in f64; squares of bf16 values need more
+    # bits than f64 has, so their sums agree to its rounding
+    same = np.array_equal if dtype != "bf16" else (
+        lambda a, b: np.allclose(a, b, rtol=1e-12, atol=0))
+    check(same(sumx[rows], C.sum(axis=1)) and same(sumsqx[rows], (C * C).sum(axis=1)),
           f"{dtype} LOO: code sums differ from f64 on the host")
     xy_err = float(np.max(np.abs(xy[rows] - C @ y_mod) / (np.abs(C) @ np.abs(y_mod))))
     xh = x1_up[rows] / math.sqrt(n)
@@ -1127,8 +1385,8 @@ def phase_modes(dtype: str, main: MainPath, out_dir: str, est: str, r1: str, gam
         f"{np.round([r[0] for r in rows_t], 4).tolist()}); predict in {t_pred:.3f}s; kernel "
         f"launches of the modes {({k: c for k, c in counts.items() if c})}")
     for k in MODE_KERNELS[dtype]:
-        check(counts[k] > 0, f"{dtype} modes: {k} never launched")
-    return {name: rec}, {name: counts[name]}
+        check(k is None or counts[k] > 0, f"{dtype} modes: {k} never launched")
+    return recs, ({name: counts[name]} if name is not None else {})
 
 
 # ---------------------------------------------------------------------------
@@ -1525,13 +1783,16 @@ def main(argv=None) -> int:
         phase_parity(dev, "int8", log_dir, out_dir, model="bin_class", c=2,
                      iters={"spectral": 4, "cg": 3})
         phase_parity(dev, "int8", log_dir, out_dir, c=2, iters={"eigen": 4})
+        phase_parity(dev, "bf16", log_dir, out_dir)
         phase_cli(dev, log_dir)
         phase_cli_probit(dev, log_dir)
+        phase_resume(dev, log_dir)
         for dtype in DTYPES:
             phase_gibbs_parity(dev, dtype)
         phase_gibbs_workflow(dev, log_dir)
-        main8 = phase_main("int8", X8, log_dir, out_dir, x1_min=0.4,
-                           solvers=(("eigen", 5), ("auto", 4), ("cg", 2)))
+        main8 = phase_main("int8", lambda: design_from_codes(X8), log_dir, out_dir, x1_min=0.4,
+                           runs=MAIN_RUNS_INT8, cache=os.path.join(out_dir, "eigen_int8.npz"),
+                           checkpoint_cost=True)
         counts = dict(main8.launches)
         mode_recs, mode_counts = phase_modes(
             "int8", main8, out_dir, *main_dumps(out_dir, "int8", "auto", 4), test_runs=5)
@@ -1546,7 +1807,8 @@ def main(argv=None) -> int:
             counts[name] = counts.get(name, 0) + gibbs_counts[name]
         del X8, main8
         torch.cuda.empty_cache()  # the int8 X goes before the int4 path
-        main4 = phase_main("int4", X4, log_dir, out_dir, x1_min=X1_MIN_INT4)
+        main4 = phase_main("int4", lambda: design_from_packed(X4), log_dir, out_dir,
+                           x1_min=X1_MIN_INT4)
         counts.update({name: c for name, c in main4.launches.items()
                        if name in ("atx_packed4", "ax_batch_packed4", "atx_batch_packed4")})
         mode_recs, mode_counts = phase_modes(
@@ -1556,7 +1818,16 @@ def main(argv=None) -> int:
         gibbs_counts = phase_gibbs_main("int4", main4, out_dir, sweeps=2)
         for name in ("gibbs_block_update", "atx_packed4", "ax_batch_packed4"):
             counts[name] += gibbs_counts[name]
-        del main4
+        del X4, main4
+        torch.cuda.empty_cache()  # the packed X goes before the bf16 path
+        main16 = phase_main("bf16", lambda: bf16_design(dev), log_dir, out_dir, x1_min=0.4,
+                            runs=MAIN_RUNS_BF16)
+        counts.update({name: c for name, c in main16.launches.items() if name.endswith("bf16")})
+        phase_modes("bf16", main16, out_dir, *main_dumps(out_dir, "bf16", "auto", 4),
+                    test_runs=4)
+        del main16
+        torch.cuda.empty_cache()
+        phase_doctor()
         counts.update(probe_counts)
         for name, c in counts.items():
             check(c > 0, f"{name} was never launched on its own path")

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from vampomi_tpu.cli import main as jcli_main
-from vampomi_tpu_torch.cli import main as tcli_main
+from vampomi_tpu_torch.cli import main as tcli_main, parse_config
 from vampomi_tpu_torch.engine import linear as tlin
 from vampomi_tpu_torch.io.csv_writer import read_positional_csv
 from vampomi_tpu_torch.sim.data_sim import main as sim_main
@@ -124,11 +124,70 @@ UNPORTED = [
 
 @pytest.mark.parametrize("extra", UNPORTED, ids=lambda a: "".join(a).lstrip("-"))
 def test_cli_unported_modes_and_flags_exit(tmp_path, extra):
+    """--profile-dir still exits naming ROADMAP.md before any work; the
+    flags the port runs now (checkpoints, the eigen cache, bf16) parse into
+    the run's configuration instead."""
     argv = ["--meth-file", str(tmp_path / "x.bin"), "--phen-file", str(tmp_path / "x.phen"),
             "--N", "10", "--Mt", "10", "--device", "cpu", "--out-dir", str(tmp_path)]
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        tcli_main(argv + extra)
+    if extra[0] == "--profile-dir":
+        with pytest.raises(SystemExit, match="ROADMAP.md"):
+            tcli_main(argv + extra)
+    else:
+        cfg = parse_config(argv + extra)
+        field = extra[0].lstrip("-").replace("-", "_")
+        assert getattr(cfg, field) == extra[1]
+        if field == "compute_dtype":
+            assert cfg.resolved_compute_dtype() == torch.bfloat16
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("solver", SOLVERS)
+def test_cli_checkpoint_and_resume_through_files(fixture_dir, solver):
+    """--checkpoint-file then --resume-file through the port's CLI: 4 + 4
+    iterations write the same bytes as 8 straight (the CSVs, appended to,
+    and the dumps of iterations 5-8)."""
+    d = fixture_dir
+    common = ["--device", "cpu", "--seed", "3"]
+    full = _args(d, f"ckf_{solver}", solver) + common
+    assert tcli_main(full + ["--checkpoint-file", f"{d}/ckf_{solver}.npz"]) == 0
+    first = _args(d, f"ckr_{solver}", solver) + common
+    first[first.index("--iterations") + 1] = "4"
+    assert tcli_main(first + ["--checkpoint-file", f"{d}/ckr_{solver}.npz"]) == 0
+    assert tcli_main(_args(d, f"ckr_{solver}", solver) + common
+                     + ["--resume-file", f"{d}/ckr_{solver}.npz"]) == 0
+    names = [f"_{c}.csv" for c in ("metrics", "params", "prior")]
+    names += [f"_{k}it_{i}.bin" for k in ("", "r1_") for i in range(5, 9)]
+    for f in names:
+        a, b = (open(f"{d}/{p}_{solver}{f}", "rb").read() for p in ("ckf", "ckr"))
+        assert a == b, f
+
+
+def test_cli_eigen_cache_loads_on_the_second_run(fixture_dir, capsys):
+    d = fixture_dir
+    argv = _args(d, "cache", "eigen") + ["--device", "cpu", "--eigen-cache", f"{d}/eig.npz"]
+    assert tcli_main(argv) == 0
+    first = np.fromfile(f"{d}/cache_it_8.bin")
+    assert os.path.exists(f"{d}/eig.npz") and "eigenbasis of K built" in capsys.readouterr().out
+    assert tcli_main(argv) == 0
+    assert "eigenbasis of K loaded" in capsys.readouterr().out
+    np.testing.assert_array_equal(np.fromfile(f"{d}/cache_it_8.bin"), first)
+
+
+def test_cli_bf16_matches_the_jax_cli(fixture_dir):
+    """--compute-dtype bf16 through both CLIs (eigen, deterministic): the
+    same files, estimates within the bf16 rounding of JAX's vectors (the
+    int8 design's tolerance, test_torch_engine_linear.py)."""
+    d = fixture_dir
+    argv = _args(d, "jbf", "eigen") + ["--compute-dtype", "bf16"]
+    assert jcli_main(argv) in (0, None)
+    argv = _args(d, "pbf", "eigen") + ["--compute-dtype", "bf16", "--device", "cpu"]
+    assert tcli_main(argv) == 0
+    assert _outputs(d, "pbf") == _outputs(d, "jbf")
+    got, want = np.fromfile(f"{d}/pbf_it_8.bin"), np.fromfile(f"{d}/jbf_it_8.bin")
+    np.testing.assert_allclose(got, want, atol=2e-2 * np.abs(want).max())
+    np.testing.assert_allclose(np.asarray(read_positional_csv(f"{d}/pbf_metrics.csv")),
+                               np.asarray(read_positional_csv(f"{d}/jbf_metrics.csv")),
+                               rtol=2e-2, atol=2e-3)
 
 
 # ---------------------------------------------------------------------------

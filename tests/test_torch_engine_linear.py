@@ -328,10 +328,23 @@ def test_probe_is_seeded_rademacher(pair):
 @pytest.mark.parametrize("field,value", [("resume_file", "x.npz"), ("checkpoint_file", "x.npz"),
                                          ("eigen_cache", "e.npz")])
 def test_unported_engine_options_raise(pair, tmp_path, field, value):
+    """The options the engine refused before the port ran them now run:
+    a checkpoint is written, a resume continues from one (written here
+    first), an eigen cache is written (tests/test_torch_checkpoint.py and
+    test_torch_eigen_cache.py hold their results)."""
     _, tdm = pair
-    cfg = RunConfig(**cfg_kw(tmp_path, device="cpu", **{field: value}))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tlin.infere_linear(tdm, np.ones(int(tdm.n)), cfg, write_outputs=False)
+    path = str(tmp_path / value)
+    y = np.random.default_rng(0).normal(size=int(tdm.n))
+    if field == "resume_file":
+        tlin.infere_linear(tdm, y, RunConfig(**cfg_kw(tmp_path, device="cpu", iterations=1,
+                                                      checkpoint_file=path)),
+                           write_outputs=False)
+    solver = "eigen" if field == "eigen_cache" else "cg"
+    cfg = RunConfig(**cfg_kw(tmp_path, device="cpu", lmmse_solver=solver, **{field: path}))
+    res = tlin.infere_linear(tdm, y, cfg, write_outputs=False)
+    assert os.path.exists(path) and np.all(np.isfinite(res.x1_hat_scaled))
+    assert res.iterations_run == 3  # the last iteration; a resume ran iterations 2-3
+    assert len(res.iter_seconds) == (2 if field == "resume_file" else 3)
 
 
 def test_covariates_run_in_the_engine(fx, pair, tmp_path):

@@ -33,6 +33,7 @@ import vampomi_tpu_torch.engine.probit, vampomi_tpu_torch.glm.probit
 import vampomi_tpu_torch.utils.mathx, vampomi_tpu_torch.prior.marginal
 import vampomi_tpu_torch.gibbs.__main__, vampomi_tpu_torch.ops.gibbs_block
 import vampomi_tpu_torch.scripts.conf_gibbs_init, vampomi_tpu_torch.scripts.pip
+import vampomi_tpu_torch.engine.checkpoint, vampomi_tpu_torch.doctor, vampomi_tpu_torch.ops.bf16
 state1 = (str(torch.get_default_dtype()), torch.backends.cuda.matmul.allow_tf32,
           torch.get_float32_matmul_precision())
 added = sorted(set(sys.modules) - before)
@@ -55,7 +56,8 @@ def test_importing_the_port_pulls_in_no_jax():
                 "ops.moments", "ops.spectral", "modes.association", "modes.test_mode",
                 "modes.predict", "engine.probit", "glm.probit", "utils.mathx",
                 "prior.marginal", "gibbs.sampler", "gibbs.runner", "ops.gibbs_block",
-                "scripts.conf_gibbs_init", "scripts.pip"):
+                "scripts.conf_gibbs_init", "scripts.pip", "engine.checkpoint", "doctor",
+                "ops.bf16"):
         assert f"vampomi_tpu_torch.{mod}" in res["added"], mod
     assert res["same_state"], "importing the port changed global torch state"
 
@@ -107,5 +109,8 @@ def test_compute_dtype_resolution(compute_dtype, device, want):
 
 @pytest.mark.parametrize("compute_dtype", ["bfloat16", "bf16"])
 def test_unported_compute_dtypes_raise(compute_dtype):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tconfig.RunConfig(compute_dtype=compute_dtype).resolved_compute_dtype()
+    """bf16 was refused before the port ran it; now both spellings resolve
+    to the bf16 design on either device."""
+    for device in ("cpu", "cuda"):
+        cfg = tconfig.RunConfig(compute_dtype=compute_dtype, device=device)
+        assert cfg.resolved_compute_dtype() == torch.bfloat16

@@ -26,6 +26,10 @@ from vampomi_tpu_torch.ops import operator as top
 from vampomi_tpu_torch.ops.atx_int8 import (
     atx_batch_int8, atx_batch_int8_plain, atx_int8, atx_int8_plain,
 )
+from vampomi_tpu_torch.ops.bf16 import (
+    atx_batch_bf16, atx_batch_bf16_plain, atx_bf16, atx_bf16_plain, ax_batch_bf16,
+    ax_batch_bf16_plain,
+)
 from vampomi_tpu_torch.ops.moments import (
     row_moments_int8, row_moments_int8_plain, row_moments_packed4, row_moments_packed4_plain,
 )
@@ -119,17 +123,22 @@ def test_packed_kernels_match_plain_on_card(cuda_device, shape, k):
         (before[0] + 2, before[1] + 2, before[2] + 2)
 
 
-# the two X Ys kernels of csrc/xy.cuh (R = 4 rows per warp at K <= 4)
+# the three X Ys kernels of csrc/xy.cuh (R = 4 rows per warp at K <= 4)
 XY = {"int8": (atx_batch_int8, atx_batch_int8_plain),
-      "packed4": (atx_batch_packed4, atx_batch_packed4_plain)}
+      "packed4": (atx_batch_packed4, atx_batch_packed4_plain),
+      "bf16": (atx_batch_bf16, atx_batch_bf16_plain)}
 
 
 def _xy_case(dev, kind, m, nb, k, seed, offset=0):
-    """X (m, nb) of int8 codes or packed bytes starting `offset` bytes into
-    its storage (1: not 16-byte aligned, so the byte path), its f64 codes
-    (m, N) and f32 Ys (N, k)."""
+    """X (m, nb) of int8 codes, packed bytes or bf16 values starting
+    `offset` elements into its storage (1: not 16-byte aligned, so the
+    byte or unit path), its f64 values (m, N) and f32 Ys (N, k)."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
+    if kind == "bf16":
+        X = torch.randn(m * nb + offset, device=dev, generator=g).to(torch.bfloat16)
+        X = X[offset:].view(m, nb)
+        return X, X.double(), torch.randn(nb, k, device=dev, generator=g)
     lo, hi, dt = (-127, 128, torch.int8) if kind == "int8" else (0, 256, torch.uint8)
     X = torch.randint(lo, hi, (m * nb + offset,), dtype=dt, device=dev,
                       generator=g)[offset:].view(m, nb)
@@ -159,12 +168,30 @@ def test_xy_kernels_ldg_path_and_unaligned_x_on_card(cuda_device, kind, offset, 
     so Ys is read through the read-only cache; offset 1 puts X one byte off
     16-byte alignment."""
     kern, plain = XY[kind]
-    nb = 20_000 if kind == "int8" else 10_000
+    nb = 10_000 if kind == "packed4" else 20_000
     X, C, Ys = _xy_case(cuda_device, kind, 515, nb, k, seed=k + 10 * offset, offset=offset)
     _check(kern, plain, X, Ys, C)
 
 
-@pytest.mark.parametrize("dtype", [torch.int8, top.PACKED4_DTYPE])
+@pytest.mark.parametrize("shape", [(1000, 1001), (4096, 10240), (77, 16), (3, 8)])
+@pytest.mark.parametrize("k", [1, 2, 8])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_bf16_kernels_match_plain_on_card(cuda_device, shape, k, offset):
+    """atx_bf16 and ax_batch_bf16 against their plain versions and the f64
+    product of the stored values (a bf16 value widens to f32 exactly), at
+    the 16-byte and (N % 8 != 0, or offset 1: X off 16-byte alignment) the
+    unit path; one launch a call."""
+    m, n = shape
+    X, C, y = _xy_case(cuda_device, "bf16", m, n, 1, seed=k + n, offset=offset)
+    W = torch.randn(m, k, device=cuda_device)
+    before = (atx_bf16.launches, ax_batch_bf16.launches)
+    _check(ax_batch_bf16, ax_batch_bf16_plain, X, W, C.T)
+    _check(lambda a, v: atx_bf16(a, v[:, 0].contiguous())[:, None],
+           lambda a, v: atx_bf16_plain(a, v[:, 0].contiguous())[:, None], X, y, C)
+    assert (atx_bf16.launches, ax_batch_bf16.launches) == (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, top.PACKED4_DTYPE, torch.bfloat16])
 def test_quantized_operator_on_card_matches_cpu(cuda_device, dtype):
     """ax, atx, ax_batch, atx_batch of a quantized design: the card (through
     the kernels) against the CPU (plain versions), and every kernel of the
@@ -177,8 +204,9 @@ def test_quantized_operator_on_card_matches_cpu(cuda_device, dtype):
     y = rng.normal(size=512).astype(np.float32)
     xs = rng.normal(size=(3000, 2)).astype(np.float32)
     ys = rng.normal(size=(512, 2)).astype(np.float32)
-    kernels = ([atx_int8, ax_batch_int8, atx_batch_int8] if dtype == torch.int8
-               else [atx_packed4, ax_batch_packed4, atx_batch_packed4])
+    kernels = {torch.int8: [atx_int8, ax_batch_int8, atx_batch_int8],
+               top.PACKED4_DTYPE: [atx_packed4, ax_batch_packed4, atx_batch_packed4],
+               torch.bfloat16: [atx_bf16, ax_batch_bf16, atx_batch_bf16]}[dtype]
     before = [k.launches for k in kernels]
     for op, v in ((top.ax, x), (top.atx, y), (top.ax_batch, xs), (top.atx_batch, ys)):
         want = op(cpu, torch.as_tensor(v)).numpy()
@@ -365,7 +393,7 @@ def test_shift_inverse_on_card_matches_f64(cuda_device, n):
                                                     device=cuda_device)), -tau, gam2)
 
 
-@pytest.mark.parametrize("dtype", [torch.int8, top.PACKED4_DTYPE])
+@pytest.mark.parametrize("dtype", [torch.int8, top.PACKED4_DTYPE, torch.bfloat16])
 def test_a_column_does_not_depend_on_its_batch_on_card(cuda_device, dtype):
     """Test mode sends 8 estimates through one ax_batch pass: each column at
     K = 8 against the same column alone (K = 1) and in a batch of 3, within

@@ -491,11 +491,20 @@ def test_probit_draws_are_seeded_and_ordered(pair):
 @pytest.mark.parametrize("field,value", [("resume_file", "x.npz"), ("checkpoint_file", "x.npz"),
                                          ("eigen_cache", "e.npz")])
 def test_probit_unported_engine_options_raise(pair, probit_problem, tmp_path, field, value):
+    """The options the probit engine refused before the port ran them now
+    run (tests/test_torch_checkpoint.py holds a resumed run bitwise)."""
     _, tdm = pair
     _, ybin = probit_problem
-    cfg = RunConfig(**probit_kw(tmp_path, device="cpu", **{field: value}))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tprob.infere_bin_class(tdm, ybin, cfg, write_outputs=False)
+    path = str(tmp_path / value)
+    if field == "resume_file":
+        tprob.infere_bin_class(tdm, ybin, RunConfig(**probit_kw(
+            tmp_path, device="cpu", iterations=2, checkpoint_file=path)), write_outputs=False)
+    solver = "eigen" if field == "eigen_cache" else "cg"
+    cfg = RunConfig(**probit_kw(tmp_path, device="cpu", lmmse_solver=solver, **{field: path}))
+    res = tprob.infere_bin_class(tdm, ybin, cfg, write_outputs=False)
+    assert os.path.exists(path) and np.all(np.isfinite(res.x1_hat_scaled))
+    assert res.iterations_run == ITERS  # the last iteration; a resume ran 3..ITERS
+    assert len(res.iter_seconds) == ITERS - (2 if field == "resume_file" else 0)
 
 
 def test_probit_eigen_build_budget_falls_back(probit_problem, tmp_path):

@@ -59,3 +59,43 @@ def test_probit_cli_phase_runs_on_the_cpu(tmp_path):
     checks is written and finite (the card runs it at N = 2,000)."""
     chip_smoke.phase_cli_probit("cpu", str(tmp_path), n=120, m=300, iters=3)
     assert (tmp_path / "cli_bin_int8_cg.log").exists()
+
+
+def test_resume_phase_runs_on_the_cpu(tmp_path, capsys):
+    """The CLI resume phase at a toy size with --device cpu: every
+    configuration byte-identical (the card runs it at N = 2,000)."""
+    chip_smoke.phase_resume("cpu", str(tmp_path), n=120, m=300, iters=4, split=2)
+    out = capsys.readouterr().out
+    assert out.count("byte-identical") == len(chip_smoke.RESUME_RUNS)
+    assert "NOT byte-identical" not in out
+
+
+@pytest.mark.parametrize("solver", ["eigen", "spectral", "cg"])
+def test_exact_launches_count_the_engines_passes(tmp_path, monkeypatch, solver):
+    """The launch counts chip_smoke.py holds the bf16 main path to are the
+    calls the linear engine makes to the three bf16 wrappers (counted here
+    on the CPU, where the wrappers run their plain versions)."""
+    from vampomi_tpu_torch.config import RunConfig
+    from vampomi_tpu_torch.engine.linear import infere_linear
+    from vampomi_tpu_torch.ops import operator as top
+    from vampomi_tpu_torch.sim.data_sim import simulate_iid
+
+    calls = {}
+    for name in ("atx_bf16", "atx_batch_bf16", "ax_batch_bf16"):
+        orig = getattr(top, name)
+
+        def counted(*a, _name=name, _orig=orig):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _orig(*a)
+
+        monkeypatch.setattr(top, name, counted)
+    fx = simulate_iid(n=200, m=800, lam=0.05, h2=0.8, seed=1)
+    dm = top.build_design(fx.X.T, compute_dtype=torch.bfloat16, device="cpu")
+    k = 3
+    res = infere_linear(dm, fx.y, RunConfig(out_dir=str(tmp_path), out_name="x", iterations=k,
+                                            lmmse_solver=solver, stop_criteria_thr=0.0,
+                                            device="cpu", probs=[0.95, 0.05],
+                                            vars=[0.0, 1e-2]))
+    steps = chip_smoke._trace_steps(str(tmp_path / "x_trace.jsonl")) if solver == "cg" else []
+    assert res.solver == solver and (solver != "cg" or sum(steps) > 0)
+    assert calls == chip_smoke.exact_launches("bf16", solver, k, steps)

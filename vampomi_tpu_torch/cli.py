@@ -5,14 +5,14 @@
 Ported: `--run-mode infere` for both models (`--model linear` and
 `--model bin_class`, with covariates through `--C` and `--cov-file`) with
 the cg, spectral and eigen LMMSE solvers (auto picks as the JAX package
-does) over f64, f32, int8 and packed-int4 (`--compute-dtype int4`) designs;
-`--run-mode test` and `predict` for both models; `--run-mode
-association_test` (`--pval-method se | loo | loo_std`), which does not
-depend on the model; `--init-conf` starts the prior from a Gibbs warm
-start's `.conf` (python -m vampomi_tpu_torch.gibbs, then
-scripts/conf_gibbs_init.py).  Checkpoint/resume, the eigen cache,
-`--profile-dir` and bf16 exit with a message naming ROADMAP.md; none is
-replaced by other behaviour.
+does, a warm `--eigen-cache` included) over f64, f32, bf16, int8 and
+packed-int4 (`--compute-dtype int4`) designs, with `--checkpoint-file` and
+`--resume-file`; `--run-mode test` and `predict` for both models;
+`--run-mode association_test` (`--pval-method se | loo | loo_std`), which
+does not depend on the model; `--init-conf` starts the prior from a Gibbs
+warm start's `.conf` (python -m vampomi_tpu_torch.gibbs, then
+scripts/conf_gibbs_init.py).  `--profile-dir` exits with a message naming
+ROADMAP.md; it is not replaced by other behaviour.
 
     python -m vampomi_tpu_torch.cli --device cuda --meth-file x.bin ...
 """
@@ -22,7 +22,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from .config import NOT_PORTED_DTYPES, RunConfig, resolve_device
+from .config import RunConfig, resolve_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -160,20 +160,11 @@ def parse_config(argv: list[str]) -> RunConfig:
 
 
 def _reject_unported(cfg: RunConfig) -> None:
-    """SystemExit naming ROADMAP.md for every flag and compute dtype the
-    port does not run yet."""
-    bad = []
-    for flag, val in (("--resume-file", cfg.resume_file),
-                      ("--checkpoint-file", cfg.checkpoint_file),
-                      ("--eigen-cache", cfg.eigen_cache),
-                      ("--profile-dir", cfg.profile_dir)):
-        if val:
-            bad.append(flag)
-    if cfg.compute_dtype in NOT_PORTED_DTYPES:
-        bad.append(f"--compute-dtype {cfg.compute_dtype}")
-    if bad:
+    """SystemExit naming ROADMAP.md for the flag the port does not run yet,
+    --profile-dir."""
+    if cfg.profile_dir:
         raise SystemExit(
-            f"vampomi_tpu_torch: {', '.join(bad)} not ported yet — see the "
+            "vampomi_tpu_torch: --profile-dir not ported yet — see the "
             "port's queue in ROADMAP.md (use the JAX package vampomi_tpu meanwhile)")
 
 

@@ -25,8 +25,9 @@ _DTYPES = {
     "int8": torch.int8, "i8": torch.int8,
     # packed 4-bit design, two codes per byte (ops/operator.py PACKED4_DTYPE)
     "int4": torch.uint8, "i4": torch.uint8,
+    # the raw values rounded to bf16 (ops/operator.py build_design)
+    "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
 }
-NOT_PORTED_DTYPES = ("bfloat16", "bf16")
 
 
 def resolve_device(name: str | torch.device) -> torch.device:
@@ -110,7 +111,7 @@ class RunConfig:
     spectral_max_n: int = 16384   # auto picks spectral only when N <= this
     eigen_cache: str = ""
     eigen_build_budget: float = 0.0  # wall seconds the eigen build may take (0 = unlimited)
-    compute_dtype: str = "auto"   # auto | float64 | float32 | int8 | int4 (bfloat16 not ported)
+    compute_dtype: str = "auto"   # auto | float64 | float32 | bfloat16 | int8 | int4
     seed: int = 0                 # seeded probe RNG (fixes reference quirk Q4)
     checkpoint_file: str = ""
     resume_file: str = ""
@@ -126,10 +127,6 @@ class RunConfig:
         if self.compute_dtype == "auto":
             return (torch.float64 if torch.device(self.device).type == "cpu"
                     else torch.float32)
-        if self.compute_dtype in NOT_PORTED_DTYPES:
-            raise NotImplementedError(
-                f"--compute-dtype {self.compute_dtype} is not ported yet "
-                "(see ROADMAP.md)")
         return _DTYPES[self.compute_dtype]
 
     def check(self):

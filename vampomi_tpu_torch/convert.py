@@ -4,7 +4,9 @@ Each function takes a dict of numpy arrays — the fields of a JAX
 `DesignMatrix`, `MixturePrior`, `GramFactor`, `ShiftInverse` or
 `EigenFactor` or `GibbsState`, already fetched with np.asarray by the caller — and builds the
 port's counterpart on a given device.  Parity tests go through these so that
-both packages compute on identical inputs.  Nothing here imports jax.
+both packages compute on identical inputs.  `checkpoint_from_jax` carries a
+JAX-written checkpoint file into a run of the port.  Nothing here imports
+jax.
 """
 
 from __future__ import annotations
@@ -18,29 +20,29 @@ from .ops.operator import DesignMatrix
 from .ops.spectral import GramFactor, ShiftInverse
 from .prior.mixture import MixturePrior
 
-_NP_TO_TORCH = {
-    np.dtype(np.int8): torch.int8,
-    np.dtype(np.uint8): torch.uint8,  # packed int4 (two nibbles per byte)
-    np.dtype(np.float32): torch.float32,
-    np.dtype(np.float64): torch.float64,
-}
+# X dtypes torch takes from numpy as they are (uint8: packed int4, two
+# nibbles a byte)
+_NP_DTYPES = {np.dtype(t) for t in (np.int8, np.uint8, np.float32, np.float64)}
 
 
 def design_from_arrays(d: dict, device: str | torch.device = "cpu") -> DesignMatrix:
     """DesignMatrix from `X, mave, msig, mmask, inv_sqrt_n, n, mt`.  X keeps
-    its dtype (f64, f32, int8 or packed-int4 uint8); the vectors go to the
-    work dtype."""
+    its dtype (f64, f32, bf16, int8 or packed-int4 uint8); the vectors go to
+    the work dtype."""
     X = np.asarray(d["X"])
-    xd = _NP_TO_TORCH.get(X.dtype)
-    if xd is None:
-        raise NotImplementedError(f"X dtype {X.dtype} is not ported yet")
-    wd = torch.float32 if xd in (torch.int8, torch.uint8) else xd
+    if X.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: the bits as they are
+        Xt = torch.from_numpy(np.ascontiguousarray(X).view(np.int16).copy()).view(torch.bfloat16)
+    elif X.dtype in _NP_DTYPES:
+        Xt = torch.tensor(X)  # a copy: JAX hands out read-only buffers
+    else:
+        raise NotImplementedError(f"X dtype {X.dtype} is not ported")
+    wd = Xt.dtype if Xt.dtype in (torch.float32, torch.float64) else torch.float32
 
     def vec(a):
         return torch.tensor(np.asarray(a, dtype=np.float64)).to(device=device, dtype=wd)
 
     return DesignMatrix(
-        X=torch.tensor(X).to(device),  # a copy: JAX hands out read-only buffers
+        X=Xt.to(device),
         mave=vec(d["mave"]),
         msig=vec(d["msig"]),
         mmask=vec(d["mmask"]),
@@ -101,3 +103,31 @@ def gibbs_state_from_arrays(d: dict, device: str | torch.device = "cpu") -> Gibb
         sigma_e=f64(d["sigma_e"]).reshape(()),
         pi=f64(d["pi"]),
     )
+
+
+def checkpoint_from_jax(ck: dict | str, model: str, solver: str) -> dict:
+    """A JAX-written checkpoint (format 1, engine/checkpoint.py), as the
+    port's engines resume it, for a run of `model` under the LMMSE `solver`
+    that will run.  `ck` is a path or what `load_checkpoint` returned.
+
+    The arrays, scalars and prior carry over as they are.  The JAX PRNG key
+    does not: a torch.Generator cannot replay its stream, so the resumed run
+    keeps its own seeded generator.  That is exact only where the rest of
+    the run draws nothing that feeds a result: the eigen and spectral
+    solvers (their traces are closed forms, the probe goes unused), for the
+    linear model and, since the checkpoint holds p1, the probit one.  Under
+    CG every iteration draws a Rademacher probe, so this raises."""
+    from .engine.checkpoint import JAX_FORMAT_VERSION, load_checkpoint
+
+    if isinstance(ck, str):
+        ck = load_checkpoint(ck)
+    if ck["version"] != JAX_FORMAT_VERSION or ck.get("rng_key") is None:
+        raise ValueError(f"not a JAX-written checkpoint (format {ck['version']})")
+    if solver not in ("eigen", "spectral"):
+        raise ValueError(
+            f"a JAX-written checkpoint cannot resume a {model} run under the {solver!r} "
+            "LMMSE solver: it draws a Rademacher probe every iteration, and the JAX "
+            "PRNG key the checkpoint holds cannot be replayed by the port's "
+            "torch.Generator (use --lmmse-solver eigen or spectral, or resume it "
+            "with the JAX package)")
+    return dict(ck, rng_state=None)

@@ -16,5 +16,5 @@
 
 extern "C" int atx_batch_int8_launch(const void* X, const void* Yt, void* out, long long M,
                                      long long N, int K, void* stream) {
-  return static_cast<int>(vampomi::xy_launch<1>(X, Yt, out, M, N, K, stream));
+  return static_cast<int>(vampomi::xy_launch<vampomi::ByteCodes<1>>(X, Yt, out, M, N, K, stream));
 }

@@ -14,5 +14,5 @@
 
 extern "C" int atx_batch_packed4_launch(const void* X, const void* Yt, void* out, long long M,
                                         long long n2, int K, void* stream) {
-  return static_cast<int>(vampomi::xy_launch<2>(X, Yt, out, M, n2, K, stream));
+  return static_cast<int>(vampomi::xy_launch<vampomi::ByteCodes<2>>(X, Yt, out, M, n2, K, stream));
 }

@@ -13,7 +13,7 @@
 extern "C" int atx_packed4_launch(const void* X, const void* y, void* out, long long M,
                                   long long n2, void* stream) {
   if (M < 1 || n2 < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(vampomi::xy_k<2, 1>(
+  return static_cast<int>(vampomi::xy_k<vampomi::ByteCodes<2>, 1>(
       static_cast<const uint8_t*>(X), static_cast<const float*>(y), static_cast<float*>(out), M,
       n2, vampomi::xy_vec_ok(X, y, n2), static_cast<cudaStream_t>(stream)));
 }

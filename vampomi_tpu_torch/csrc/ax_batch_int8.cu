@@ -13,11 +13,12 @@
 #include "xtw.cuh"
 
 extern "C" int ax_batch_int8_splits(long long M, long long N, int K, long long* splits) {
-  return static_cast<int>(vampomi::xtw_splits<1>(M, N, K, splits));
+  return static_cast<int>(vampomi::xtw_splits<vampomi::ByteCodes<1>>(M, N, K, splits));
 }
 
 extern "C" int ax_batch_int8_launch(const void* X, const void* W, void* work, void* out,
                                     long long M, long long N, int K, long long splits,
                                     void* stream) {
-  return static_cast<int>(vampomi::xtw_launch<1>(X, W, work, out, M, N, K, splits, stream));
+  return static_cast<int>(
+      vampomi::xtw_launch<vampomi::ByteCodes<1>>(X, W, work, out, M, N, K, splits, stream));
 }

@@ -13,11 +13,12 @@
 #include "xtw.cuh"
 
 extern "C" int ax_batch_packed4_splits(long long M, long long n2, int K, long long* splits) {
-  return static_cast<int>(vampomi::xtw_splits<2>(M, n2, K, splits));
+  return static_cast<int>(vampomi::xtw_splits<vampomi::ByteCodes<2>>(M, n2, K, splits));
 }
 
 extern "C" int ax_batch_packed4_launch(const void* X, const void* W, void* work, void* out,
                                        long long M, long long n2, int K, long long splits,
                                        void* stream) {
-  return static_cast<int>(vampomi::xtw_launch<2>(X, W, work, out, M, n2, K, splits, stream));
+  return static_cast<int>(
+      vampomi::xtw_launch<vampomi::ByteCodes<2>>(X, W, work, out, M, n2, K, splits, stream));
 }

@@ -1,5 +1,5 @@
-// Exact f32 decodes of the quantized design's bytes, shared by the kernels
-// of the int8 and packed-int4 designs.
+// Exact f32 decodes of the design's bytes, shared by the kernels of the
+// int8, packed-int4 and bf16 designs.
 //
 // A design byte holds P codes:
 //   P = 1  int8: one code in [-127, 127] (ops/operator.py quantize_markers);
@@ -7,7 +7,14 @@
 //          sample j, the high one the code of sample j + N/2, both in
 //          [-8, 7] (ops/operator.py pack_nibbles_host).
 // Byte j of a row of nb bytes thus carries the codes of samples p*nb + j,
-// p < P, and a row holds N = P*nb samples.
+// p < P, and a row holds N = P*nb samples.  A bf16 element takes two bytes
+// (`Bf16` below).
+//
+// The row-blocked templates xy.cuh and xtw.cuh read a row as units of UB
+// bytes (one sample each per half, P halves: N = P*nb/UB) and 16-byte loads
+// as quads: four consecutive samples of each half, from WPQ words.  Each
+// decode type gives P, UB and WPQ, `quad` (a quad of a 16-byte load),
+// `quad_at` (a quad from its words) and `unit` (unit j of a row).
 //
 // Every code is upcast to f32 exactly.  Instead of an int->float conversion
 // per code, a biased byte value v in [0, 255] is placed in the low mantissa
@@ -81,6 +88,44 @@ __device__ __forceinline__ unsigned pick(const uint4& v, int k) {
   // register select (no local-memory array indexing)
   return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
 }
+
+// the template interface of the byte decodes: a quad is one word
+template <int P_>
+struct ByteCodes : Codes<P_> {
+  static constexpr int P = P_, UB = 1, WPQ = 1;
+  __device__ static __forceinline__ void quad(const uint4& v, int q, float (&c)[P_][4]) {
+    Codes<P_>::word(pick(v, q), c);
+  }
+  __device__ static __forceinline__ void quad_at(const unsigned* w, float (&c)[P_][4]) {
+    Codes<P_>::word(w[0], c);
+  }
+  __device__ static __forceinline__ void unit(const uint8_t* row, long long j, float (&c)[P_]) {
+    Codes<P_>::byte(__ldg(row + j), c);
+  }
+};
+
+// bf16: an element is the upper half of an f32, so it widens exactly by
+// its bits shifted left 16; a little-endian word holds element 2i in its
+// low half and 2i + 1 in its high half, and a quad takes two words
+struct Bf16 {
+  static constexpr int P = 1, UB = 2, WPQ = 2;
+  __device__ static __forceinline__ void pair(unsigned w, float& a, float& b) {
+    a = __uint_as_float(w << 16);
+    b = __uint_as_float(w & 0xFFFF0000u);
+  }
+  __device__ static __forceinline__ void quad(const uint4& v, int q, float (&c)[1][4]) {
+    pair(pick(v, 2 * q), c[0][0], c[0][1]);
+    pair(pick(v, 2 * q + 1), c[0][2], c[0][3]);
+  }
+  __device__ static __forceinline__ void quad_at(const unsigned* w, float (&c)[1][4]) {
+    pair(w[0], c[0][0], c[0][1]);
+    pair(w[1], c[0][2], c[0][3]);
+  }
+  __device__ static __forceinline__ void unit(const uint8_t* row, long long j, float (&c)[1]) {
+    const unsigned h = __ldg(reinterpret_cast<const unsigned short*>(row) + j);
+    c[0] = __uint_as_float(h << 16);
+  }
+};
 
 __device__ __forceinline__ float warp_sum(float s) {
 #pragma unroll

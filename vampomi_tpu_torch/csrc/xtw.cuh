@@ -1,9 +1,15 @@
-// Z = X^T W over marker rows: the broadcast direction of the quantized
-// design (ax / ax_batch), for K <= 8 right-hand sides.
+// Z = X^T W over marker rows: the broadcast direction of the quantized and
+// bf16 designs (ax / ax_batch), for K <= 8 right-hand sides.
 //
-//   X  (M, nb) bytes, marker-major, P codes per byte (codes.cuh)
+//   X  (M, nb) bytes, marker-major, read through a decode type C
+//      (codes.cuh): units of C::UB bytes, unit j carrying sample p*nu + j of
+//      each half p < C::P, nu = nb/UB
 //   W  (M, K)  f32, row-major
-//   Z  (N, K)  f32, N = P*nb:  Z[p*nb + j, k] = sum_m code_p(X[m, j]) W[m, k]
+//   Z  (N, K)  f32, N = P*nu:  Z[p*nu + j, k] = sum_m x_p(X[m, j]) W[m, k]
+//
+// Instances: C = ByteCodes<1> (int8), ByteCodes<2> (packed int4), Bf16
+// (the bf16 design's broadcast, an XLA einsum in the JAX package,
+// vampomi_tpu/ops/operator.py:186-197, with no Pallas kernel).
 //
 // It replaces two TPU Pallas kernels that compute this with a sequential
 // grid, zeroing the (K, N) output on the first grid step and adding each
@@ -13,12 +19,12 @@
 // matrix unit; here every code is upcast exactly to f32, multiplied by the
 // f32 weight and summed in f32 (the interpret-mode arithmetic).
 //
-// Bound: bytes of X.  One pass reads M*nb bytes at 2*P*K FLOPs per byte,
+// Bound: bytes of X.  One pass reads M*nb bytes at 2*P*K/UB FLOPs per byte,
 // against 4*M*K bytes of W and 4*N*K bytes of output.  Hopper has no ordered
 // grid, so the sum over markers is split in two passes:
 //   1. each warp owns a column tile of 32*VB bytes (lane l the VB contiguous
 //      bytes l*VB.., one 16-, 8- or 4-byte load per row) and one range of
-//      rows (a "split"); each lane keeps K*P*VB accumulators in registers
+//      rows (a "split"); each lane keeps K*P*VB/UB accumulators in registers
 //      (at most 64), walks its rows four at a time so four loads are in
 //      flight, reads the row's K weights as a broadcast load, and writes its
 //      columns of the split's partial Z to a workspace (splits, N, K);
@@ -26,8 +32,9 @@
 // No atomics: the result is bitwise repeatable.  The splits are as many as
 // fill the card once (resident warps / column tiles), so the workspace is a
 // few tens of MB at the largest shapes.
-// Ragged shapes: any M >= 1 and nb >= 1.  When nb % VB != 0 or X is not
-// 16-byte aligned each lane reads its VB bytes one at a time.
+// Ragged shapes: any M >= 1 and nb >= 1 (a multiple of UB).  When
+// nb % VB != 0 or X is not 16-byte aligned each lane reads its VB bytes one
+// unit at a time.
 
 #pragma once
 
@@ -39,8 +46,11 @@ constexpr int kXtwWarps = 4;                  // warps per block
 constexpr int kXtwThreads = kXtwWarps * 32;
 constexpr int kXtwMinRows = 64;               // no split holds fewer rows
 
-// bytes per lane: the widest load that keeps K*P*VB accumulators <= 64
-constexpr int xtw_vb(int P, int K) { return K * P * 16 <= 64 ? 16 : (K * P * 8 <= 64 ? 8 : 4); }
+// bytes per lane: the widest load that keeps K*P*VB/UB accumulators <= 64
+template <class C>
+constexpr int xtw_vb(int K) {
+  return K * C::P * 16 / C::UB <= 64 ? 16 : (K * C::P * 8 / C::UB <= 64 ? 8 : 4);
+}
 
 template <int VB>
 __device__ __forceinline__ void load_words(const uint8_t* p, unsigned (&w)[VB / 4]) {
@@ -55,13 +65,16 @@ __device__ __forceinline__ void load_words(const uint8_t* p, unsigned (&w)[VB / 
   }
 }
 
-template <int P, int K, int VB>
+// the VB/(4*WPQ) quads of a lane's VB bytes, each into four of its
+// accumulators per half and right-hand side
+template <class C, int K, int VB>
 __device__ __forceinline__ void fma_words(const unsigned (&w)[VB / 4], const float (&wt)[K],
-                                          float (&acc)[K][P][VB]) {
+                                          float (&acc)[K][C::P][VB / C::UB]) {
+  constexpr int P = C::P;
 #pragma unroll
-  for (int q = 0; q < VB / 4; ++q) {
+  for (int q = 0; q < VB / (4 * C::WPQ); ++q) {
     float c[P][4];
-    Codes<P>::word(w[q], c);
+    C::quad_at(&w[q * C::WPQ], c);
 #pragma unroll
     for (int p = 0; p < P; ++p)
 #pragma unroll
@@ -71,26 +84,30 @@ __device__ __forceinline__ void fma_words(const unsigned (&w)[VB / 4], const flo
   }
 }
 
-template <int P, int K, int VB, bool VEC>
+template <class C, int K, int VB, bool VEC>
 __global__ void __launch_bounds__(kXtwThreads, 4)
 xtw_kernel(const uint8_t* __restrict__ X, const float* __restrict__ W, float* __restrict__ part,
            long long M, long long nb, long long splits, long long rows_per_split, long long tiles) {
+  constexpr int P = C::P;
+  constexpr int E = VB / C::UB;  // units per lane
+  const long long nu = nb / C::UB;
   const int lane = threadIdx.x & 31;
   const long long gw = static_cast<long long>(blockIdx.x) * kXtwWarps + (threadIdx.x >> 5);
   const long long split = gw / tiles;
   if (split >= splits) return;
   const long long col0 = (gw % tiles) * (32LL * VB) + static_cast<long long>(lane) * VB;
   if (col0 >= nb) return;  // past the row's end (VEC: all VB bytes are in range)
+  const long long u0 = col0 / C::UB;  // the lane's first unit
   const long long r0 = split * rows_per_split;
   const long long r1 = r0 + rows_per_split < M ? r0 + rows_per_split : M;
 
-  float acc[K][P][VB];
+  float acc[K][P][E];
 #pragma unroll
   for (int k = 0; k < K; ++k)
 #pragma unroll
     for (int p = 0; p < P; ++p)
 #pragma unroll
-      for (int b = 0; b < VB; ++b) acc[k][p][b] = 0.0f;
+      for (int b = 0; b < E; ++b) acc[k][p][b] = 0.0f;
 
   if (VEC) {
     const uint8_t* xp = X + r0 * nb + col0;
@@ -105,7 +122,7 @@ xtw_kernel(const uint8_t* __restrict__ X, const float* __restrict__ W, float* __
 #pragma unroll
         for (int k = 0; k < K; ++k) wt[u][k] = __ldg(W + (r + u) * K + k);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) fma_words<P, K, VB>(w[u], wt[u], acc);
+      for (int u = 0; u < 4; ++u) fma_words<C, K, VB>(w[u], wt[u], acc);
     }
     for (; r < r1; ++r, xp += nb) {
       unsigned w[VB / 4];
@@ -113,19 +130,19 @@ xtw_kernel(const uint8_t* __restrict__ X, const float* __restrict__ W, float* __
       load_words<VB>(xp, w);
 #pragma unroll
       for (int k = 0; k < K; ++k) wt[k] = __ldg(W + r * K + k);
-      fma_words<P, K, VB>(w, wt, acc);
+      fma_words<C, K, VB>(w, wt, acc);
     }
   } else {
     for (long long r = r0; r < r1; ++r) {
-      const uint8_t* xp = X + r * nb + col0;
+      const uint8_t* row = X + r * nb;
       float wt[K];
 #pragma unroll
       for (int k = 0; k < K; ++k) wt[k] = __ldg(W + r * K + k);
 #pragma unroll
-      for (int b = 0; b < VB; ++b) {
-        if (col0 + b < nb) {
+      for (int b = 0; b < E; ++b) {
+        if (u0 + b < nu) {
           float c[P];
-          Codes<P>::byte(__ldg(xp + b), c);
+          C::unit(row, u0 + b, c);
 #pragma unroll
           for (int p = 0; p < P; ++p)
 #pragma unroll
@@ -135,15 +152,15 @@ xtw_kernel(const uint8_t* __restrict__ X, const float* __restrict__ W, float* __
     }
   }
 
-  float* out = part + split * (P * nb) * K;
+  float* out = part + split * (P * nu) * K;
 #pragma unroll
   for (int p = 0; p < P; ++p)
 #pragma unroll
-    for (int b = 0; b < VB; ++b) {
-      const long long col = col0 + b;
-      if (col < nb) {
+    for (int b = 0; b < E; ++b) {
+      const long long col = u0 + b;
+      if (col < nu) {
 #pragma unroll
-        for (int k = 0; k < K; ++k) out[(p * nb + col) * K + k] = acc[k][p][b];
+        for (int k = 0; k < K; ++k) out[(p * nu + col) * K + k] = acc[k][p][b];
       }
     }
 }
@@ -161,9 +178,9 @@ sum_splits_kernel(const float* __restrict__ part, float* __restrict__ out, long 
   }
 }
 
-template <int P, int K>
+template <class C, int K>
 struct Xtw {
-  static constexpr int VB = xtw_vb(P, K);
+  static constexpr int VB = xtw_vb<C>(K);
 
   static long long tiles(long long nb) { return (nb + 32LL * VB - 1) / (32LL * VB); }
 
@@ -171,7 +188,7 @@ struct Xtw {
   // and none empty
   static cudaError_t splits(long long M, long long nb, long long* out) {
     long long blocks = 0;
-    cudaError_t err = resident_blocks(xtw_kernel<P, K, VB, true>, kXtwThreads, 0, &blocks);
+    cudaError_t err = resident_blocks(xtw_kernel<C, K, VB, true>, kXtwThreads, 0, &blocks);
     if (err != cudaSuccess) return err;
     long long s = blocks * kXtwWarps / tiles(nb);
     const long long most = (M + kXtwMinRows - 1) / kXtwMinRows;
@@ -189,13 +206,15 @@ struct Xtw {
     const long long warps = splits * t;
     const unsigned grid = static_cast<unsigned>((warps + kXtwWarps - 1) / kXtwWarps);
     if (vec) {
-      xtw_kernel<P, K, VB, true><<<grid, kXtwThreads, 0, stream>>>(X, W, part, M, nb, splits, rows, t);
+      xtw_kernel<C, K, VB, true>
+          <<<grid, kXtwThreads, 0, stream>>>(X, W, part, M, nb, splits, rows, t);
     } else {
-      xtw_kernel<P, K, VB, false><<<grid, kXtwThreads, 0, stream>>>(X, W, part, M, nb, splits, rows, t);
+      xtw_kernel<C, K, VB, false>
+          <<<grid, kXtwThreads, 0, stream>>>(X, W, part, M, nb, splits, rows, t);
     }
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    const long long len = P * nb * K;
+    const long long len = C::P * (nb / C::UB) * K;
     long long g = (len + 255) / 256;
     if (g > 4096) g = 4096;
     sum_splits_kernel<<<static_cast<unsigned>(g), 256, 0, stream>>>(part, out, len, splits);
@@ -203,27 +222,28 @@ struct Xtw {
   }
 };
 
-// The C entry points of a library built from this header, for P codes per
-// byte.  `splits` reports the workspace the launch needs: (splits, N, K) f32.
-template <int P>
+// The C entry points of a library built from this header, for the decode
+// type C and rows of nb bytes.  `splits` reports the workspace the launch
+// needs: (splits, N, K) f32.
+template <class C>
 cudaError_t xtw_splits(long long M, long long nb, int K, long long* out) {
   switch (K) {
-    case 1: return Xtw<P, 1>::splits(M, nb, out);
-    case 2: return Xtw<P, 2>::splits(M, nb, out);
-    case 3: return Xtw<P, 3>::splits(M, nb, out);
-    case 4: return Xtw<P, 4>::splits(M, nb, out);
-    case 5: return Xtw<P, 5>::splits(M, nb, out);
-    case 6: return Xtw<P, 6>::splits(M, nb, out);
-    case 7: return Xtw<P, 7>::splits(M, nb, out);
-    case 8: return Xtw<P, 8>::splits(M, nb, out);
+    case 1: return Xtw<C, 1>::splits(M, nb, out);
+    case 2: return Xtw<C, 2>::splits(M, nb, out);
+    case 3: return Xtw<C, 3>::splits(M, nb, out);
+    case 4: return Xtw<C, 4>::splits(M, nb, out);
+    case 5: return Xtw<C, 5>::splits(M, nb, out);
+    case 6: return Xtw<C, 6>::splits(M, nb, out);
+    case 7: return Xtw<C, 7>::splits(M, nb, out);
+    case 8: return Xtw<C, 8>::splits(M, nb, out);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int P>
+template <class C>
 cudaError_t xtw_launch(const void* X, const void* W, void* part, void* out, long long M,
                        long long nb, int K, long long splits, void* stream) {
-  if (M < 1 || nb < 1 || splits < 1) return cudaErrorInvalidValue;
+  if (M < 1 || nb < C::UB || nb % C::UB != 0 || splits < 1) return cudaErrorInvalidValue;
   const uint8_t* Xp = static_cast<const uint8_t*>(X);
   const float* Wp = static_cast<const float*>(W);
   float* pp = static_cast<float*>(part);
@@ -233,8 +253,8 @@ cudaError_t xtw_launch(const void* X, const void* W, void* part, void* out, long
   switch (K) {
 #define VAMPOMI_XTW_CASE(KK)                                                              \
   case KK:                                                                               \
-    return Xtw<P, KK>::launch(Xp, Wp, pp, op, M, nb, splits,                             \
-                              aligned && nb % Xtw<P, KK>::VB == 0, s);
+    return Xtw<C, KK>::launch(Xp, Wp, pp, op, M, nb, splits,                             \
+                              aligned && nb % Xtw<C, KK>::VB == 0, s);
     VAMPOMI_XTW_CASE(1)
     VAMPOMI_XTW_CASE(2)
     VAMPOMI_XTW_CASE(3)

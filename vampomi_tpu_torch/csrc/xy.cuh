@@ -1,10 +1,15 @@
-// Y = X Ys over marker rows: the reduce direction of the quantized design
-// (atx / atx_batch), for K <= 8 right-hand sides and P codes per byte.
+// Y = X Ys over marker rows: the reduce direction of the quantized and bf16
+// designs (atx / atx_batch), for K <= 8 right-hand sides.
 //
-//   X   (M, nb) bytes, marker-major, P codes per byte (codes.cuh): byte j
-//       carries the codes of samples p*nb + j, p < P, so N = P*nb
+//   X   (M, nb) bytes, marker-major, read through a decode type C
+//       (codes.cuh): units of C::UB bytes, unit j of a row carrying sample
+//       p*nu + j of each half p < C::P, nu = nb/UB, so N = P*nu
 //   Yt  (K, N)  f32, the right-hand sides transposed (the wrapper's copy)
-//   Y   (M, K)  f32:  Y[m, k] = sum_p sum_j code_p(X[m, j]) Yt[k, p*nb + j]
+//   Y   (M, K)  f32:  Y[m, k] = sum_p sum_j x_p(X[m, j]) Yt[k, p*nu + j]
+//
+// Instances: C = ByteCodes<1> (int8, UB = 1), ByteCodes<2> (packed int4),
+// Bf16 (UB = 2: a 16-byte load holds 8 elements, two quads, where a byte
+// design's holds four quads of each half).
 //
 // It replaces the TPU Pallas kernels `atx_batch_packed4_raw`
 // (vampomi_tpu/ops/pallas_matvec.py:183-238) and `atx_packed4_raw`
@@ -14,7 +19,7 @@
 // code is upcast exactly to f32, multiplied by the f32 entry and summed in
 // f32 (the interpret-mode arithmetic).
 //
-// Bound.  One pass reads M*nb bytes of X at 2*P*K FLOPs per byte, against
+// Bound.  One pass reads M*nb bytes of X at 2*P*K/UB FLOPs per byte, against
 // 4*N*K bytes of Ys and 4*M*K bytes of output.  At K = 2 that is 8 FLOPs a
 // packed byte: 1.28 ms of f32 FMAs at 67 TFLOP/s against 3.21 ms for the
 // 10.7 GB of X at 3.35 TB/s (M = 2,097,152 x nb = 5,120), so the bytes
@@ -42,13 +47,14 @@
 //     K*N*4 bytes fit kSmemMax (N = 10,240: 40 KB at K = 1, 80 KB at K = 2;
 //     above the 48 KB static limit, so the kernel opts in with
 //     cudaFuncSetAttribute), and read through the read-only cache otherwise;
-//   * lane l reads float4 4c + q of each (k, p) segment of Ys at step q of
-//     chunk c = l + 32t; in shared memory that float4 is stored at
-//     4c + (q ^ ((c / 2) % 4)) (xy_swz), so the eight lanes of a quarter warp
-//     hit eight distinct 16-byte bank groups while q, the 4-byte word of the
-//     chunk the step decodes, is known at compile time (a word picked by a
-//     lane-dependent index costs three selects per row and step); through
-//     the read-only cache the words are rotated by (lane / 2) % 4 instead;
+//   * lane l reads float4 Qc + q of each (k, p) segment of Ys at step q of
+//     chunk c = l + 32t, Q = 4/UB quads a chunk; in shared memory that
+//     float4 is stored at Qc + (q ^ ((c / (8/Q)) % Q)) (xy_swz), so the eight
+//     lanes of a quarter warp hit eight distinct 16-byte bank groups while
+//     q, the quad of the chunk the step decodes, is known at compile time (a
+//     word picked by a lane-dependent index costs three selects per row and
+//     step); through the read-only cache the quads are rotated by
+//     (lane / (8/Q)) % Q instead;
 //   * blocks are persistent and walk row groups with a grid stride; lane
 //     partial sums meet in a warp-shuffle tree: no atomics, bitwise
 //     repeatable.
@@ -60,7 +66,7 @@
 // further from it (PERF.md).
 // Ragged shapes: any M >= 1 and nb >= 1.  The last M mod R rows of a group
 // read row M-1 again and are not written.  When nb % 16 != 0 or a pointer is
-// not 16-byte aligned each lane reads one byte of each row per step.
+// not 16-byte aligned each lane reads one unit of each row per step.
 
 #pragma once
 
@@ -84,22 +90,37 @@ constexpr int xy_rows(int K) { return K <= 4 ? 4 : (K <= 6 ? 2 : 1); }
 // measured faster; at K = 1 it measured slower), else one.
 __host__ __device__ constexpr int xy_sums(int P, int K) { return P == 2 && K == 2 ? 2 : 1; }
 
-// float4s of one (k, p) segment of Ys in shared memory on the 16-byte path:
-// nb/4, rounded up to a 128-byte multiple so every segment starts on bank 0
-__host__ __device__ constexpr long long xy_seg(long long nb) { return ((nb >> 2) + 7) & ~7LL; }
+// quads (float4s of Ys per half) in a 16-byte chunk of a row
+template <class C>
+__host__ __device__ constexpr int xy_quads() { return 4 / C::UB; }
 
-// where float4 j of a segment is stored in shared memory: its group of four
-// keeps its place, the float4 within the group is XORed with bits 3-4 of j
-__device__ __forceinline__ long long xy_swz(long long j) { return j ^ ((j >> 3) & 3); }
+// float4s of one (k, p) segment of Ys on the 16-byte path, nb/(4*UB) (a
+// shift: nb is never negative)
+template <class C>
+__host__ __device__ constexpr long long xy_n4(long long nb) { return nb >> (C::UB == 2 ? 3 : 2); }
+
+// float4s of one (k, p) segment of Ys in shared memory on the 16-byte path:
+// xy_n4, rounded up to a 128-byte multiple so every segment starts on bank 0
+template <class C>
+__host__ __device__ constexpr long long xy_seg(long long nb) { return (xy_n4<C>(nb) + 7) & ~7LL; }
+
+// where float4 j of a segment is stored in shared memory: its group of Q
+// (one chunk's quads) keeps its place, the float4 within the group is
+// XORed with bits 3.. of j (Q = 4: bits 3-4; Q = 2: bit 3)
+template <int Q>
+__device__ __forceinline__ long long xy_swz(long long j) { return j ^ ((j >> 3) & (Q - 1)); }
 
 // ys4: Ys in shared memory as K*P swizzled segments of xy_seg(nb) float4s
-// (SMEM), or Yt in device memory, segments of nb/4 float4s
-template <int P, int K, int R, bool SMEM>
+// (SMEM), or Yt in device memory, segments of xy_n4(nb) float4s
+template <class C, int K, int R, bool SMEM>
 __device__ __forceinline__ void xy_vec(const uint8_t* const (&xr)[R], const float4* ys4,
                                        long long nb, int lane, float (&acc)[R][K]) {
+  constexpr int P = C::P;
+  constexpr int Q = xy_quads<C>();
   const long long nchunks = nb >> 4;  // 16 bytes per chunk
-  const long long seg = SMEM ? xy_seg(nb) : nb >> 2;
-  const int rot = (lane >> 1) & 3;    // (c / 2) % 4 for every chunk c of this lane
+  const long long seg = SMEM ? xy_seg<C>(nb) : xy_n4<C>(nb);
+  constexpr int kRotShift = Q == 4 ? 1 : (Q == 2 ? 2 : 3);  // log2(8/Q)
+  const int rot = (lane >> kRotShift) & (Q - 1);  // (c / (8/Q)) % Q for every chunk c of this lane
   constexpr int S = xy_sums(P, K);
   float part[R][K][S];
 #pragma unroll
@@ -122,9 +143,9 @@ __device__ __forceinline__ void xy_vec(const uint8_t* const (&xr)[R], const floa
       for (int i = 0; i < R; ++i) nxt[i] = __ldg(reinterpret_cast<const uint4*>(xr[i]) + c + 32);
     }
 #pragma unroll
-    for (int q0 = 0; q0 < 4; ++q0) {
-      const int q = SMEM ? q0 : (q0 + rot) & 3;  // the word this step decodes
-      const long long at = c * 4 + (SMEM ? (q0 ^ rot) : q);
+    for (int q0 = 0; q0 < Q; ++q0) {
+      const int q = SMEM ? q0 : (q0 + rot) & (Q - 1);  // the quad this step decodes
+      const long long at = c * Q + (SMEM ? (q0 ^ rot) : q);
       float4 y[K][P];
 #pragma unroll
       for (int k = 0; k < K; ++k)
@@ -136,7 +157,7 @@ __device__ __forceinline__ void xy_vec(const uint8_t* const (&xr)[R], const floa
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         float cd[P][4];
-        Codes<P>::word(pick(v[i], q), cd);
+        C::quad(v[i], q, cd);
 #pragma unroll
         for (int k = 0; k < K; ++k)
 #pragma unroll
@@ -162,19 +183,21 @@ __device__ __forceinline__ void xy_vec(const uint8_t* const (&xr)[R], const floa
       for (int h = 0; h < S; ++h) acc[i][k] += part[i][k][h];
 }
 
-template <int P, int K, int R, bool SMEM>
-__device__ __forceinline__ void xy_bytes(const uint8_t* const (&xr)[R], const float* ys,
+template <class C, int K, int R, bool SMEM>
+__device__ __forceinline__ void xy_units(const uint8_t* const (&xr)[R], const float* ys,
                                          long long nb, int lane, float (&acc)[R][K]) {
-  const long long N = P * nb;
-  for (long long j = lane; j < nb; j += 32) {
+  constexpr int P = C::P;
+  const long long nu = nb / C::UB;
+  const long long N = P * nu;
+  for (long long j = lane; j < nu; j += 32) {
     float cd[R][P];
 #pragma unroll
-    for (int i = 0; i < R; ++i) Codes<P>::byte(__ldg(xr[i] + j), cd[i]);
+    for (int i = 0; i < R; ++i) C::unit(xr[i], j, cd[i]);
 #pragma unroll
     for (int k = 0; k < K; ++k)
 #pragma unroll
       for (int p = 0; p < P; ++p) {
-        const long long idx = k * N + p * nb + j;
+        const long long idx = k * N + p * nu + j;
         const float y = SMEM ? ys[idx] : __ldg(ys + idx);
 #pragma unroll
         for (int i = 0; i < R; ++i) acc[i][k] = fmaf(cd[i][p], y, acc[i][k]);
@@ -182,20 +205,21 @@ __device__ __forceinline__ void xy_bytes(const uint8_t* const (&xr)[R], const fl
   }
 }
 
-template <int P, int K, int R, bool VEC, bool SMEM>
+template <class C, int K, int R, bool VEC, bool SMEM>
 __global__ void __launch_bounds__(kXyThreads, 2)
 xy_kernel(const uint8_t* __restrict__ X, const float* __restrict__ Yt, float* __restrict__ out,
           long long M, long long nb) {
+  constexpr int P = C::P;
   extern __shared__ float4 ys_raw[];
-  const long long N = P * nb;
+  const long long N = P * (nb / C::UB);
   const float* ys = SMEM ? reinterpret_cast<const float*>(ys_raw) : Yt;
   if (SMEM) {
     if constexpr (VEC) {  // nb % 16 == 0 and Yt 16-byte aligned
       const float4* src = reinterpret_cast<const float4*>(Yt);
-      const long long n4 = nb >> 2, seg = xy_seg(nb);
+      const long long n4 = xy_n4<C>(nb), seg = xy_seg<C>(nb);
       for (long long i = threadIdx.x; i < K * P * n4; i += kXyThreads) {
         const long long s = i / n4, j = i - s * n4;  // segment (k, p) = (s / P, s % P)
-        ys_raw[s * seg + xy_swz(j)] = __ldg(src + i);
+        ys_raw[s * seg + xy_swz<xy_quads<C>()>(j)] = __ldg(src + i);
       }
     } else {
       float* dst = reinterpret_cast<float*>(ys_raw);
@@ -220,9 +244,9 @@ xy_kernel(const uint8_t* __restrict__ X, const float* __restrict__ Yt, float* __
 #pragma unroll
       for (int k = 0; k < K; ++k) acc[i][k] = 0.0f;
     if constexpr (VEC) {
-      xy_vec<P, K, R, SMEM>(xr, reinterpret_cast<const float4*>(ys), nb, lane, acc);
+      xy_vec<C, K, R, SMEM>(xr, reinterpret_cast<const float4*>(ys), nb, lane, acc);
     } else {
-      xy_bytes<P, K, R, SMEM>(xr, ys, nb, lane, acc);
+      xy_units<C, K, R, SMEM>(xr, ys, nb, lane, acc);
     }
 #pragma unroll
     for (int i = 0; i < R; ++i)
@@ -235,51 +259,51 @@ xy_kernel(const uint8_t* __restrict__ X, const float* __restrict__ Yt, float* __
 }
 
 // bytes of Ys in shared memory
-template <int P, int K, bool VEC>
+template <class C, int K, bool VEC>
 long long xy_smem(long long nb) {
-  return VEC ? K * P * xy_seg(nb) * 16 : K * P * nb * 4;
+  return VEC ? K * C::P * xy_seg<C>(nb) * 16 : K * C::P * (nb / C::UB) * 4;
 }
 
-template <int P, int K, int R, bool VEC, bool SMEM>
+template <class C, int K, int R, bool VEC, bool SMEM>
 cudaError_t xy_launch_t(const uint8_t* X, const float* Yt, float* out, long long M, long long nb,
                         cudaStream_t stream) {
-  const size_t smem = SMEM ? static_cast<size_t>(xy_smem<P, K, VEC>(nb)) : 0;
+  const size_t smem = SMEM ? static_cast<size_t>(xy_smem<C, K, VEC>(nb)) : 0;
   cudaError_t err;
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(xy_kernel<P, K, R, VEC, SMEM>,
+    err = cudaFuncSetAttribute(xy_kernel<C, K, R, VEC, SMEM>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   long long grid = 0;
-  err = resident_blocks(xy_kernel<P, K, R, VEC, SMEM>, kXyThreads, smem, &grid);
+  err = resident_blocks(xy_kernel<C, K, R, VEC, SMEM>, kXyThreads, smem, &grid);
   if (err != cudaSuccess) return err;
   const long long need = ((M + R - 1) / R + kXyWarps - 1) / kXyWarps;
   if (grid > need) grid = need;
-  xy_kernel<P, K, R, VEC, SMEM><<<static_cast<unsigned>(grid), kXyThreads, smem, stream>>>(
+  xy_kernel<C, K, R, VEC, SMEM><<<static_cast<unsigned>(grid), kXyThreads, smem, stream>>>(
       X, Yt, out, M, nb);
   return cudaGetLastError();
 }
 
-template <int P, int K, int R>
+template <class C, int K, int R>
 cudaError_t xy_paths(const uint8_t* X, const float* Yt, float* out, long long M, long long nb,
                      bool vec, cudaStream_t s) {
   if (vec) {
-    return xy_smem<P, K, true>(nb) <= kSmemMax
-               ? xy_launch_t<P, K, R, true, true>(X, Yt, out, M, nb, s)
-               : xy_launch_t<P, K, R, true, false>(X, Yt, out, M, nb, s);
+    return xy_smem<C, K, true>(nb) <= kSmemMax
+               ? xy_launch_t<C, K, R, true, true>(X, Yt, out, M, nb, s)
+               : xy_launch_t<C, K, R, true, false>(X, Yt, out, M, nb, s);
   }
-  return xy_smem<P, K, false>(nb) <= kSmemMax
-             ? xy_launch_t<P, K, R, false, true>(X, Yt, out, M, nb, s)
-             : xy_launch_t<P, K, R, false, false>(X, Yt, out, M, nb, s);
+  return xy_smem<C, K, false>(nb) <= kSmemMax
+             ? xy_launch_t<C, K, R, false, true>(X, Yt, out, M, nb, s)
+             : xy_launch_t<C, K, R, false, false>(X, Yt, out, M, nb, s);
 }
 
 // K right-hand sides at xy_rows(K) rows per warp, on every path (16-byte or
-// byte loads, Ys in shared memory or not)
-template <int P, int K>
+// unit loads, Ys in shared memory or not)
+template <class C, int K>
 cudaError_t xy_k(const uint8_t* X, const float* Yt, float* out, long long M, long long nb,
                  bool vec, cudaStream_t s) {
-  return xy_paths<P, K, xy_rows(K)>(X, Yt, out, M, nb, vec, s);
+  return xy_paths<C, K, xy_rows(K)>(X, Yt, out, M, nb, vec, s);
 }
 
 // the 16-byte path needs nb % 16 == 0 and 16-byte aligned X and Yt
@@ -288,29 +312,29 @@ inline bool xy_vec_ok(const void* X, const void* Yt, long long nb) {
          reinterpret_cast<uintptr_t>(Yt) % 16 == 0;
 }
 
-// The C entry point of a library built from this header, for P codes per
-// byte: launches on the caller's stream, allocates nothing, does not
-// synchronise, and returns cudaGetLastError() of the launch.
-template <int P>
+// K-th instance for k == K, else the next one, up to 8
+template <class C, int K>
+cudaError_t xy_dispatch(const uint8_t* X, const float* Yt, float* out, long long M, long long nb,
+                        int k, bool vec, cudaStream_t s) {
+  if constexpr (K > 8) {
+    return cudaErrorInvalidValue;
+  } else {
+    return k == K ? xy_k<C, K>(X, Yt, out, M, nb, vec, s)
+                  : xy_dispatch<C, K + 1>(X, Yt, out, M, nb, k, vec, s);
+  }
+}
+
+// The C entry point of a library built from this header, for the decode
+// type C and rows of nb bytes (nb % C::UB == 0): launches on the caller's
+// stream, allocates nothing, does not synchronise, and returns
+// cudaGetLastError() of the launch.
+template <class C>
 cudaError_t xy_launch(const void* X, const void* Yt, void* out, long long M, long long nb, int K,
                       void* stream) {
-  if (M < 1 || nb < 1) return cudaErrorInvalidValue;
-  const uint8_t* Xp = static_cast<const uint8_t*>(X);
-  const float* Yp = static_cast<const float*>(Yt);
-  float* op = static_cast<float*>(out);
-  const bool vec = xy_vec_ok(X, Yt, nb);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (K) {
-    case 1: return xy_k<P, 1>(Xp, Yp, op, M, nb, vec, s);
-    case 2: return xy_k<P, 2>(Xp, Yp, op, M, nb, vec, s);
-    case 3: return xy_k<P, 3>(Xp, Yp, op, M, nb, vec, s);
-    case 4: return xy_k<P, 4>(Xp, Yp, op, M, nb, vec, s);
-    case 5: return xy_k<P, 5>(Xp, Yp, op, M, nb, vec, s);
-    case 6: return xy_k<P, 6>(Xp, Yp, op, M, nb, vec, s);
-    case 7: return xy_k<P, 7>(Xp, Yp, op, M, nb, vec, s);
-    case 8: return xy_k<P, 8>(Xp, Yp, op, M, nb, vec, s);
-    default: return cudaErrorInvalidValue;
-  }
+  if (M < 1 || nb < C::UB || nb % C::UB != 0 || K < 1 || K > 8) return cudaErrorInvalidValue;
+  return xy_dispatch<C, 1>(static_cast<const uint8_t*>(X), static_cast<const float*>(Yt),
+                           static_cast<float*>(out), M, nb, K, xy_vec_ok(X, Yt, nb),
+                           static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace vampomi

@@ -32,13 +32,21 @@ the eigen solver falls back to spectral where the JAX engine's does (eigen
 residual above tolerance, eigen build over budget).  Covariates (--C > 0)
 are fitted once before the loop by the probit Newton solver
 (glm/probit.newton_method_cov, as src/vamp.cpp:153-169 does) and taken out
-of y for the constant A^T y; gamw and the metrics keep the raw y.  Not
-ported yet (ROADMAP.md): checkpoint/resume and the eigen cache.
+of y for the constant A^T y; gamw and the metrics keep the raw y.
+
+`--checkpoint-file` saves the exact state after every iteration, on the IO
+thread (engine/checkpoint.py), and `--resume-file` continues from one,
+appending to the CSVs; the probe generator advances every iteration under
+every solver, so a checkpoint taken under one solver resumes under another
+with the same stream.  `--eigen-cache` keeps K's eigenbasis on disk
+(ops/eigen.py build_eigen_cached), and a warm cache makes "auto" pick eigen
+where it would pick spectral, as in the JAX engine.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import sys
 import time
 from typing import NamedTuple
@@ -51,7 +59,7 @@ from ..glm.probit import newton_method_cov
 from ..io.bin_io import HostStager, iteration_file, write_marker_file
 from ..io.csv_writer import PositionalCSV
 from ..ops.cg import cg_solve
-from ..ops.eigen import EigenFactor, build_eigen, eigen_weights
+from ..ops.eigen import EigenFactor, build_eigen, build_eigen_cached, cache_plausible, eigen_weights
 from ..ops.operator import PACKED4_DTYPE, DesignMatrix, atx, ax, ax_batch, f64
 from ..ops.spectral import GramFactor, _trace_closed_forms, build_spectral, shift_inverse
 from ..prior.mixture import (
@@ -59,6 +67,7 @@ from ..prior.mixture import (
 )
 from ..utils.async_writer import AsyncWriter
 from ..utils.telemetry import Tracer
+from .checkpoint import load_resume, save_checkpoint
 from .metrics import prediction_metrics, signal_metrics
 
 GAMMA_MIN = 1e-11  # reference src/vamp.hpp:33
@@ -367,15 +376,19 @@ def _iteration_phase_spectral(dm: DesignMatrix, fac: GramFactor, *args) -> dict:
 
 
 def choose_lmmse_solver(cfg: RunConfig, mt: int, n: int) -> str:
-    """Resolve cfg.lmmse_solver with the JAX engine's rule
+    """Resolve cfg.lmmse_solver with the JAX engine's rule on one device
     (engine/linear.py:485-521): "auto" picks the spectral path when the
     one-time Gram build is clearly amortized (2048 <= N <= spectral_max_n
-    and Mt >= 4N), else CG.  The warm-cache upgrade to eigen needs
-    --eigen-cache, which is not ported, and this port runs on one device."""
+    and Mt >= 4N), else CG; there, a warm --eigen-cache (a readable cache of
+    this package for this N, ops/eigen.py cache_plausible) upgrades it to
+    eigen, whose dense work is two N^2 matvecs an iteration against the
+    spectral factor's 2N^3/3, once the eigh is a file load."""
     s = cfg.lmmse_solver
     if s != "auto":
         return s
     if n <= cfg.spectral_max_n and n >= 2048 and mt >= 4 * n:
+        if cfg.eigen_cache and cache_plausible(cfg.eigen_cache, n):
+            return "eigen"
         return "spectral"
     return "cg"
 
@@ -400,19 +413,32 @@ def warn_em_stability(cfg: RunConfig, mt: int, n: int) -> bool:
 
 
 def build_eigen_budgeted(fac, cfg: RunConfig):
-    """build_eigen under cfg.eigen_build_budget wall seconds (0 = unlimited).
-    Returns (EigenFactor, diagnostics), or (None, None) over budget: the
-    caller then falls back to the per-iteration spectral solver, as the JAX
-    engine does (engine/linear.py:622-641).  cuSOLVER's eigh cannot be
-    interrupted, so the budget is checked when it returns."""
+    """build_eigen, through the cache of cfg.eigen_cache when it is set,
+    under cfg.eigen_build_budget wall seconds (0 = unlimited).  Returns
+    (EigenFactor, diagnostics), or (None, None) over budget: the caller then
+    falls back to the per-iteration spectral solver, as the JAX engine does
+    (engine/linear.py:622-641).  cuSOLVER's eigh cannot be interrupted, so
+    the budget is checked when it returns."""
     t0 = time.time()
-    ef, diag = build_eigen(fac)
+    if cfg.eigen_cache:
+        ef, diag = build_eigen_cached(fac, cfg.eigen_cache, seed=cfg.seed)
+    else:
+        ef, diag = build_eigen(fac)
     if cfg.eigen_build_budget > 0 and time.time() - t0 > cfg.eigen_build_budget:
         _log(f"eigen build exceeded --eigen-build-budget "
              f"{cfg.eigen_build_budget:.0f}s — falling back to the "
              f"per-iteration spectral factor path")
         return None, None
     return ef, diag
+
+
+def _skip_probe(gen: torch.Generator, dm: DesignMatrix) -> None:
+    """Advance the generator past the probe an exact solver does not use,
+    so the draw sequence stays one probe an iteration whatever the solver
+    (the JAX engines split their key every iteration for the same reason):
+    the same random numbers `_draw_probe` consumes, nothing copied to the
+    device."""
+    torch.randint(0, 2, (dm.m_pad,), generator=gen)
 
 
 def _draw_probe(gen: torch.Generator, dm: DesignMatrix) -> torch.Tensor:
@@ -440,9 +466,13 @@ def build_lmmse_factor(dm: DesignMatrix, cfg: RunConfig, solver: str, setup: dic
     budget, eigen residual above tolerance; JAX engine/linear.py:792-806,
     engine/probit.py:416-431) and their log lines.  Returns (the solver
     that runs, its GramFactor, EigenFactor or None for cg); the wall seconds
-    go to `setup` ("gram", "eigh") with the eigen residual."""
+    go to `setup` ("gram", "eigh", and with --eigen-cache "eigen_cache_load"
+    or "eigen_cache_write", parts of "eigh") with the eigen residual."""
     if solver == "cg":
         return solver, None
+    if cfg.lmmse_solver == "auto" and solver == "eigen":
+        _log(f"auto LMMSE solver: eigen, upgraded from spectral by the warm --eigen-cache "
+             f"{cfg.eigen_cache} (the eigh is a file load)")
     t_fac = time.time()
     fac = build_spectral(dm)
     _sync(dm.device)
@@ -457,7 +487,11 @@ def build_lmmse_factor(dm: DesignMatrix, cfg: RunConfig, solver: str, setup: dic
         return "spectral", fac
     setup["eigh"] = time.time() - t_eig
     setup["eigen_resid"] = eig_diag["resid"]
-    _log(f"eigenbasis of K built in {setup['eigh']:.3f}s "
+    for key in ("load_s", "write_s"):  # the eigen cache's file, within "eigh"
+        if key in eig_diag:
+            setup[f"eigen_cache_{key[:-2]}"] = eig_diag[key]
+    _log(f"eigenbasis of K {'loaded' if eig_diag.get('loaded') else 'built'} "
+         f"in {setup['eigh']:.3f}s "
          f"(residual {eig_diag['resid']:.2e}, "
          f"orthogonality {eig_diag['ortho']:.2e}, torch.linalg.eigh f64)")
     if eig_diag["resid"] > EIGEN_RESID_TOL:
@@ -469,16 +503,23 @@ def build_lmmse_factor(dm: DesignMatrix, cfg: RunConfig, solver: str, setup: dic
 
 def open_csvs(cfg: RunConfig) -> tuple[PositionalCSV, PositionalCSV, PositionalCSV]:
     """The per-iteration metrics, params and prior CSVs of a run (the
-    reference's headers; the probit engine writes its own rows under them)."""
+    reference's headers; the probit engine writes its own rows under them).
+    A resumed run appends to the files it finds: the rows written before
+    the interruption stay (vampomi_tpu/engine/linear.py:763-768)."""
     prior_header = (
         ["iteration", "number of components"]
         + [f"prob{i}" for i in range(len(cfg.probs))]
         + [f"var{i}" for i in range(len(cfg.vars))]
     )
     base = f"{cfg.out_dir}/{cfg.out_name}"
-    return (PositionalCSV(base + "_metrics.csv", METRICS_HEADER),
-            PositionalCSV(base + "_params.csv", PARAMS_HEADER),
-            PositionalCSV(base + "_prior.csv", prior_header))
+
+    def csv(path, header):
+        return PositionalCSV(path, header,
+                             create=not (cfg.resume_file and os.path.exists(path)))
+
+    return (csv(base + "_metrics.csv", METRICS_HEADER),
+            csv(base + "_params.csv", PARAMS_HEADER),
+            csv(base + "_prior.csv", prior_header))
 
 
 def dump_iteration(cfg: RunConfig, mt: int, sqrt_n: float, k: int, copy) -> None:
@@ -489,6 +530,51 @@ def dump_iteration(cfg: RunConfig, mt: int, sqrt_n: float, k: int, copy) -> None
     write_marker_file(iteration_file(cfg.out_dir, cfg.out_name, k), x1_host, mt, sqrt_n)
     write_marker_file(iteration_file(cfg.out_dir, cfg.out_name, k, kind="r1_"),
                       r1_host, mt, sqrt_n)
+
+
+def checkpoint_iteration(cfg: RunConfig, model: str, dm: DesignMatrix, k: int, copy,
+                         names, host_arrays: dict, scalars: dict, prior_h: dict,
+                         rng_state: torch.Tensor) -> None:
+    """Save iteration k's exact state to cfg.checkpoint_file; run on the IO
+    thread.  `copy` is a HostStager copy of the device vectors `names`,
+    widened to f64 here; `host_arrays` are f64 host arrays already (y_adj,
+    fetched once a run); the scalars and the prior are host values of the
+    iteration's one batched copy."""
+    arrays = {name: v.numpy().astype(np.float64) for name, v in zip(names, copy.wait())}
+    save_checkpoint(
+        cfg.checkpoint_file, iteration=k, arrays={**arrays, **host_arrays},
+        scalars=scalars, prior=prior_h, rng_state=rng_state.numpy(),
+        meta=dict(model=model, mt=int(dm.mt), n=int(dm.n), m_pad=dm.m_pad),
+    )
+
+
+def restore_vectors(ck: dict, names, device: torch.device, wd: torch.dtype) -> list:
+    """The checkpoint's f64 arrays `names` as work-dtype tensors on `device`
+    (exact: the state was saved widened from the work dtype)."""
+    a = ck["arrays"]
+    return [torch.as_tensor(np.asarray(a[k], dtype=np.float64)).to(device=device, dtype=wd)
+            for k in names]
+
+
+def restore_prior(ck: dict, device: torch.device) -> MixturePrior:
+    p = ck["prior"]
+    return MixturePrior(
+        probs=torch.as_tensor(np.asarray(p["probs"], dtype=np.float64)).to(device),
+        vars=torch.as_tensor(np.asarray(p["vars"], dtype=np.float64)).to(device),
+        active=torch.as_tensor(np.asarray(p["active"], dtype=bool)).to(device),
+    )
+
+
+def restore_generator(gen: torch.Generator, ck: dict, resume_file: str) -> None:
+    """The generator state of a checkpoint; a JAX-written one has none the
+    port can use, and the run keeps its seeded generator (convert.py
+    checkpoint_from_jax allows that only where nothing drawn feeds a
+    result)."""
+    if ck["rng_state"] is not None:
+        gen.set_state(torch.as_tensor(np.asarray(ck["rng_state"], dtype=np.uint8)))
+    else:
+        _log(f"{resume_file}: a JAX-written checkpoint; its PRNG key is not replayed "
+             f"(the exact solver draws nothing that feeds a result)")
 
 
 def infere_linear(
@@ -502,15 +588,6 @@ def infere_linear(
 ) -> LinearResult:
     """Run linear gVAMP.  `y`, `true_signal`, `x1hat_init` are host arrays in
     file units; `dm` is the design operator on the run's device."""
-    not_ported = [name for name, on in (
-        ("--resume-file", cfg.resume_file),
-        ("--checkpoint-file", cfg.checkpoint_file),
-        ("--eigen-cache", cfg.eigen_cache),
-    ) if on]
-    if not_ported:
-        raise NotImplementedError(
-            f"{', '.join(not_ported)}: not ported yet (see ROADMAP.md)")
-
     M_pad = dm.m_pad
     Mt = int(dm.mt)
     N = int(dm.n)
@@ -542,9 +619,7 @@ def infere_linear(
     mu_warm = torch.zeros(M_pad, dtype=wd, device=dev)
     gen = torch.Generator(device="cpu")
     gen.manual_seed(int(cfg.seed))
-
-    if write_outputs:
-        out_metrics, out_params, out_prior = open_csvs(cfg)
+    it_start = 1
 
     solver = choose_lmmse_solver(cfg, Mt, N)
     if solver not in ("cg", "eigen", "spectral"):
@@ -561,6 +636,23 @@ def infere_linear(
         )
         y_adj = torch.as_tensor(np.asarray(y) - covariates @ cov_eff).to(device=dev, dtype=wd)
         setup["cov"] = time.time() - t_cov
+
+    # exact-state resume (vampomi_tpu/engine/linear.py:729-750)
+    if cfg.resume_file:
+        ck = load_resume(cfg.resume_file, model="linear", solver=solver,
+                         mt=Mt, n=N, m_pad=M_pad)
+        x1_hat, r1, mu_warm = restore_vectors(ck, ("x1_hat", "r1", "mu_warm"), dev, wd)
+        if "y_adj" in ck["arrays"]:
+            (y_adj,) = restore_vectors(ck, ("y_adj",), dev, wd)
+        gam1 = f64(ck["scalars"]["gam1"], dev)
+        gamw = f64(ck["scalars"]["gamw"], dev)
+        prior = restore_prior(ck, dev)
+        restore_generator(gen, ck, cfg.resume_file)
+        it_start = ck["iteration"] + 1
+        _log(f"...resumed exact state from {cfg.resume_file} at iteration {it_start}")
+
+    if write_outputs:
+        out_metrics, out_params, out_prior = open_csvs(cfg)
 
     t_aty = time.time()
     aty_adj = atx(dm, y_adj)  # constant across iterations
@@ -583,13 +675,16 @@ def infere_linear(
     # writes on the IO thread
     writer = AsyncWriter()
     stager = HostStager(dev)
+    # y_adj is constant across iterations: fetched once, not per checkpoint
+    y_adj_host = (y_adj.cpu().numpy().astype(np.float64)
+                  if cfg.checkpoint_file else None)
 
     metrics_history = []
     it_done = 0
     L = prior.L
 
     try:
-        for it in range(1, cfg.iterations + 1):
+        for it in range(it_start, cfg.iterations + 1):
             tracer.start()
             _log(f"\n********************\niteration = {it}\n********************")
 
@@ -620,6 +715,8 @@ def infere_linear(
                     cfg.CG_max_iter, cfg.CG_err_tol,
                     debug=cfg.verbosity == 1,
                 )
+            if solver != "cg":
+                _skip_probe(gen, dm)  # while the device works
 
             gam1_pre = gam1  # params CSV records the pre-LMMSE gam1
             x1_hat = out["x1_hat"]
@@ -673,6 +770,15 @@ def infere_linear(
             _log(f"iteration time = {rec.seconds:.3f}s  "
                  f"(~{rec.matrix_passes} matrix passes, {rec.gbps:.1f} GB/s)  "
                  f"total = {tracer.total_comp_time:.3f}s")
+
+            if cfg.checkpoint_file:
+                names = ("x1_hat", "r1", "mu_warm")
+                writer.submit(
+                    checkpoint_iteration, cfg, "linear", dm, it,
+                    stager.copy((x1_hat, r1, mu_warm)), names, dict(y_adj=y_adj_host),
+                    dict(gam1=gam1_h, gamw=gamw_h),
+                    dict(probs=probs_h, vars=vars_h, active=act), gen.get_state(),
+                )
             it_done = it
 
             # stopping criterion (src/vamp.cpp:405-423), computed on device

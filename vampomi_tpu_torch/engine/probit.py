@@ -36,8 +36,10 @@ Random draws come from one CPU torch.Generator seeded with --seed: the
 initial p1 ~ N(0, 1)^N first (src/vamp_probit.cpp:53), then one Rademacher
 probe an iteration, drawn whether or not the solver uses it, as the JAX
 engine splits its key.  One seed gives the same draws on the CPU and on a
-card.  Not ported (ROADMAP.md): checkpoint/resume and the eigen cache; the
-JAX engine's compile-ahead threads are a TPU workaround with no counterpart.
+card.  Checkpoint/resume and the eigen cache work as in the linear engine
+(engine/checkpoint.py, ops/eigen.py); the probit state adds r2, p1, p2 and
+the covariate offsets.  The JAX engine's compile-ahead threads are a TPU
+workaround with no counterpart.
 """
 
 from __future__ import annotations
@@ -60,9 +62,11 @@ from ..prior.mixture import MixturePrior, g1, g1d, init_prior
 from ..utils.async_writer import AsyncWriter
 from ..utils.mathx import normal_cdf
 from ..utils.telemetry import Tracer
+from .checkpoint import load_resume
 from .linear import (
-    _clamp, _draw_probe, _em_phase, _log, _nmse, build_lmmse_factor, choose_lmmse_solver,
-    dump_iteration, open_csvs, warn_em_stability,
+    _clamp, _draw_probe, _em_phase, _log, _nmse, _skip_probe, build_lmmse_factor,
+    checkpoint_iteration, choose_lmmse_solver, dump_iteration, open_csvs, restore_generator,
+    restore_prior, restore_vectors, warn_em_stability,
 )
 from .metrics import _corr, confusion_counts
 
@@ -216,13 +220,6 @@ def _draw_p1(gen: torch.Generator, n: int, wd: torch.dtype, dev: torch.device) -
     return torch.randn(n, generator=gen, dtype=torch.float64).to(device=dev, dtype=wd)
 
 
-def _skip_probe(gen: torch.Generator, dm: DesignMatrix) -> None:
-    """Advance the generator past the probe an exact solver does not use,
-    so the draw sequence stays one probe an iteration (the same random
-    numbers `_draw_probe` consumes, nothing copied to the device)."""
-    torch.randint(0, 2, (dm.m_pad,), generator=gen)
-
-
 def infere_bin_class(
     dm: DesignMatrix,
     y: np.ndarray,
@@ -235,15 +232,6 @@ def infere_bin_class(
     """Run probit GLM-VAMP.  `y` (0/1), `true_signal`, `x1hat_init` and the
     (N, C) z-scored `covariates` are host arrays in file units; `dm` is the
     design operator on the run's device."""
-    not_ported = [name for name, on in (
-        ("--resume-file", cfg.resume_file),
-        ("--checkpoint-file", cfg.checkpoint_file),
-        ("--eigen-cache", cfg.eigen_cache),
-    ) if on]
-    if not_ported:
-        raise NotImplementedError(
-            f"{', '.join(not_ported)}: not ported yet (see ROADMAP.md)")
-
     M_pad = dm.m_pad
     Mt = int(dm.mt)
     N = int(dm.n)
@@ -287,13 +275,28 @@ def infere_bin_class(
         m_cov = torch.as_tensor(covariates @ cov_eff).to(device=dev, dtype=wd)
         setup["cov"] = time.time() - t_cov
 
-    if write_outputs:
-        out_metrics, out_params, out_prior = open_csvs(cfg)
-
     solver = choose_lmmse_solver(cfg, Mt, N)
     if solver not in ("cg", "eigen", "spectral"):
         raise ValueError(f"unknown LMMSE solver {solver!r}")
     warn_em_stability(cfg, Mt, N)
+
+    # exact-state resume (vampomi_tpu/engine/probit.py:353-378)
+    it_start = 1
+    if cfg.resume_file:
+        ck = load_resume(cfg.resume_file, model="bin_class", solver=solver,
+                         mt=Mt, n=N, m_pad=M_pad)
+        x1_hat, r1, r2, p1, p2 = restore_vectors(ck, ("x1_hat", "r1", "r2", "p1", "p2"), dev, wd)
+        if "m_cov" in ck["arrays"]:
+            (m_cov,) = restore_vectors(ck, ("m_cov",), dev, wd)
+        sc = ck["scalars"]
+        gam1, tau1, alpha1 = f64(sc["gam1"], dev), f64(sc["tau1"], dev), f64(sc["alpha1"], dev)
+        prior = restore_prior(ck, dev)
+        restore_generator(gen, ck, cfg.resume_file)
+        it_start = ck["iteration"] + 1
+        _log(f"...resumed exact state from {cfg.resume_file} at iteration {it_start}")
+
+    if write_outputs:
+        out_metrics, out_params, out_prior = open_csvs(cfg)
     solver, fac = build_lmmse_factor(dm, cfg, solver, setup)
     tracer = Tracer(
         path=(f"{cfg.out_dir}/{cfg.out_name}_trace.jsonl"
@@ -313,7 +316,7 @@ def infere_bin_class(
     zeros_m = torch.zeros(M_pad, dtype=wd, device=dev)
 
     try:
-        for it in range(1, cfg.iterations + 1):
+        for it in range(it_start, cfg.iterations + 1):
             tracer.start()
             _log(f"\n********************\niteration = {it}\n********************")
 
@@ -380,6 +383,15 @@ def infere_bin_class(
             _log(f"iteration time = {rec.seconds:.3f}s  "
                  f"(~{rec.matrix_passes} matrix passes, {rec.gbps:.1f} GB/s)  "
                  f"total = {tracer.total_comp_time:.3f}s")
+
+            if cfg.checkpoint_file:  # vampomi_tpu/engine/probit.py:563-572
+                names = ("x1_hat", "r1", "r2", "p1", "p2", "m_cov")
+                writer.submit(
+                    checkpoint_iteration, cfg, "bin_class", dm, it,
+                    stager.copy((x1_hat, r1, r2, p1, p2, m_cov)), names, {},
+                    dict(gam1=gam1_h, tau1=tau1_h, gam2=params[6], alpha1=params[0]),
+                    dict(probs=probs_h, vars=vars_h, active=act), gen.get_state(),
+                )
             it_done = it
 
             _log(f"x1_hat NMSE = {nmse if np.isfinite(nmse) else 'n/a (zero previous iterate)'}")

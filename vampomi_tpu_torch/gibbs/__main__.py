@@ -19,7 +19,7 @@ from .runner import run_gibbs
 _DTYPES = {
     "float32": torch.float32,
     "float64": torch.float64,
-    "bfloat16": None,  # not ported (ROADMAP.md)
+    "bfloat16": torch.bfloat16,
     "int8": torch.int8,
 }
 
@@ -45,10 +45,6 @@ def main(argv=None):
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="run on the card (default; raises without one) or on the CPU")
     a = p.parse_args(argv)
-    if _DTYPES[a.compute_dtype] is None:
-        raise SystemExit(
-            f"vampomi_tpu_torch.gibbs: --compute-dtype {a.compute_dtype} not ported yet — see "
-            "the port's queue in ROADMAP.md (use the JAX package vampomi_tpu meanwhile)")
     device = resolve_device(a.device)
 
     from ..dataset import load_dataset

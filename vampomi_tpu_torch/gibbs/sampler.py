@@ -157,7 +157,8 @@ def build_block_grams(dm: DesignMatrix, block: int = 256) -> torch.Tensor:
     int8 and packed X: exact code products (see _codes_product) plus the
     rank-1 affine corrections in f32; packed blocks are unpacked to int8
     codes first.  Float X: the standardized rows of a chunk of blocks
-    multiplied in the work dtype (full f32, TF32 off), then cast to f32."""
+    multiplied in the work dtype (full f32, TF32 off; bf16 X upcast to f32,
+    JAX's "other dtypes: direct f32"), then cast to f32."""
     nb = dm.m_pad // block
     n = int(dm.n)
     # int8 codes contract exactly in int32 only while |sum| <= 127^2 N stays

@@ -38,6 +38,7 @@ from ..config import RunConfig
 from ..dataset import Dataset
 from ..io.bin_io import parse_iteration, read_bin_slab, write_bin_slab
 from ..ops.atx_int8 import atx_int8, chunk_rows
+from ..ops.bf16 import atx_bf16
 from ..ops.moments import row_moments_int8, row_moments_packed4
 from ..ops.operator import PACKED4_DTYPE, QUANTIZED, DesignMatrix, ax
 from ..ops.packed4 import atx_packed4
@@ -84,7 +85,11 @@ def _loo_stats(dm: DesignMatrix, y_mod: np.ndarray):
         c = X[lo:lo + rows].to(torch.float64)
         sumx[lo:lo + rows] = c.sum(dim=1)
         sumsqx[lo:lo + rows] = (c * c).sum(dim=1)
-    xy = X @ torch.as_tensor(y_mod).to(device=dm.device, dtype=X.dtype)
+    if X.dtype == torch.bfloat16:
+        # y in f32: a bf16 X @ y would round y and the output to bf16
+        xy = atx_bf16(X, torch.as_tensor(y_mod, dtype=torch.float32).to(dm.device))
+    else:
+        xy = X @ torch.as_tensor(y_mod).to(device=dm.device, dtype=X.dtype)
     return (sumx.cpu().numpy(), sumsqx.cpu().numpy(),
             xy.cpu().numpy().astype(np.float64))
 

@@ -16,12 +16,20 @@ The build is `torch.linalg.eigh` of K in f64, as the JAX package's own
 small-N host leaf does (eigen.py:565-572).  The JAX package's sign-function
 divide-and-conquer eigensolver (eigen.py:121-797) exists because XLA's TPU eigh
 is unusable; on the card cuSOLVER's eigh serves, so it is not ported.
+
+`build_eigen_cached` keeps the factor in an `.npz` across runs (the JAX
+package's `--eigen-cache`, eigen.py:818-932), validated against the live K
+by a fingerprint of this package's own (see `fingerprint`).
 """
 
 from __future__ import annotations
 
+import os
+import sys
+import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .operator import DesignMatrix, atx, ax, f64
@@ -62,6 +70,106 @@ def build_eigen(fac: GramFactor) -> tuple[EigenFactor, dict]:
     G = U64.T @ U64
     ortho = (G - torch.eye(fac.n, dtype=torch.float64, device=G.device)).abs().max()
     return EigenFactor(U=U, lam=lam), {"resid": float(resid), "ortho": float(ortho)}
+
+
+# The fingerprint's probe: a standard normal N-vector from numpy's PCG64 at
+# this seed, drawn in f64.  The JAX package draws its probe from
+# jax.random.PRNGKey(987654321) (vampomi_tpu/ops/eigen.py:176-186), which
+# this package cannot reproduce without jax, so its caches carry the name
+# of their probe and a cache of the other package is a miss.
+FINGERPRINT_SEED = 987654321
+FINGERPRINT_PROBE = "numpy-pcg64-987654321-f64"
+_CACHE_KEYS = {"U", "lam", "resid", "ortho", "n", "seed", "fp", "probe"}
+
+
+def fingerprint(K: torch.Tensor) -> np.ndarray:
+    """Dataset fingerprint of the eigen cache, f64 on the host: trace(K)
+    and the first 8 entries of K z for the fixed probe z (cast to K's
+    dtype).  The trace alone does not tell datasets apart (any two
+    standardized same-shape Grams have trace ~N); the sketch differs at
+    O(1) relative scale between datasets."""
+    n = K.shape[0]
+    z = np.random.default_rng(FINGERPRINT_SEED).standard_normal(n)
+    s = K @ torch.as_tensor(z).to(device=K.device, dtype=K.dtype)
+    return torch.cat([torch.trace(K)[None], s[:8]]).cpu().numpy().astype(np.float64)
+
+
+def cache_plausible(path: str, n: int) -> bool:
+    """Cheap check that `path` is a readable eigen cache of this package for
+    this N: enough for "auto" to pick eigen (the fingerprint is validated in
+    build_eigen_cached).  A corrupt or foreign file must not flip the
+    choice, which counts on the eigh being a file load."""
+    if not os.path.exists(path):
+        return False
+    try:
+        with np.load(path) as z:
+            return ("n" in z.files and int(z["n"]) == n and "probe" in z.files
+                    and str(z["probe"]) == FINGERPRINT_PROBE)
+    except Exception:
+        return False
+
+
+def _load_cache(path: str, n: int, seed: int, fp_live: np.ndarray):
+    """(U, lam, resid, ortho) of the cache at `path` when it is readable,
+    whole and made for this K (N, the seed, the trace and the sketch each
+    within a relative 1e-3, compared apart); else None with the reason.
+    Never raises."""
+    try:
+        with np.load(path) as z:
+            if "probe" not in z.files and _CACHE_KEYS - {"probe"} <= set(z.files):
+                return None, ("the JAX package's cache: its fingerprint probe is not "
+                              "this package's")
+            if not _CACHE_KEYS <= set(z.files):
+                return None, "not an eigen cache"
+            if str(z["probe"]) != FINGERPRINT_PROBE:
+                return None, f"fingerprint probe {str(z['probe'])!r}, not this package's"
+            fp_old = np.asarray(z["fp"], dtype=np.float64)
+            if int(z["n"]) != n or int(z["seed"]) != seed or fp_old.shape != fp_live.shape:
+                return None, "made for another N or seed"
+            tr_ok = abs(fp_old[0] - fp_live[0]) <= 1e-3 * max(abs(fp_live[0]), 1e-30)
+            sk_ok = (np.linalg.norm(fp_old[1:] - fp_live[1:])
+                     <= 1e-3 * max(np.linalg.norm(fp_live[1:]), 1e-30))
+            if not (tr_ok and sk_ok):
+                return None, "made for another dataset"
+            return (np.asarray(z["U"]), np.asarray(z["lam"]),
+                    float(z["resid"]), float(z["ortho"])), ""
+    except Exception as e:  # an unreadable or truncated file is a miss
+        return None, f"unreadable ({type(e).__name__})"
+
+
+def build_eigen_cached(fac: GramFactor, cache_path: str, seed: int = 0) -> tuple[EigenFactor, dict]:
+    """build_eigen with the factor kept on disk (vampomi_tpu/ops/eigen.py:
+    818-932, one process): the eigenbasis is a function of the dataset (K),
+    so a rerun, a resumed run or another run mode over the same data loads
+    it instead of running the eigh.  The Gram is still built: the
+    fingerprint reads K.
+
+    The .npz stores (U, lam, resid, ortho, n, seed, fp, probe), written
+    atomically (per-pid tmp, fsync, rename).  A missing, unreadable,
+    truncated, foreign (the JAX package's) or stale cache is a miss, logged
+    in one line when the file exists: the factor is rebuilt and the file
+    overwritten.  diagnostics["loaded"] says which happened, and
+    "load_s" or "write_s" the wall seconds of the file's part."""
+    from ..engine.checkpoint import atomic_savez
+
+    n = fac.n
+    fp_live = fingerprint(fac.K)
+    if os.path.exists(cache_path):
+        t0 = time.perf_counter()
+        hit, why = _load_cache(cache_path, n, seed, fp_live)
+        if hit is not None:
+            u_np, lam_np, resid, ortho = hit
+            U = torch.as_tensor(u_np).to(device=fac.K.device, dtype=fac.K.dtype)
+            lam = torch.as_tensor(np.asarray(lam_np, dtype=np.float64)).to(fac.K.device)
+            return EigenFactor(U=U, lam=lam), {"resid": resid, "ortho": ortho, "loaded": True,
+                                               "load_s": time.perf_counter() - t0}
+        print(f"eigen cache {cache_path}: {why} — rebuilding", file=sys.stderr, flush=True)
+    ef, diag = build_eigen(fac)
+    t0 = time.perf_counter()
+    atomic_savez(cache_path, U=ef.U.cpu().numpy(), lam=ef.lam.cpu().numpy(),
+                 resid=diag["resid"], ortho=diag["ortho"], n=n, seed=seed, fp=fp_live,
+                 probe=FINGERPRINT_PROBE)
+    return ef, {**diag, "loaded": False, "write_s": time.perf_counter() - t0}
 
 
 def eigen_weights(ef: EigenFactor, tau, gam2):

@@ -55,7 +55,11 @@ class GramFactor(NamedTuple):
 
 
 def gram(dm: DesignMatrix, block: int = 16384) -> torch.Tensor:
-    """K = A A^T as an (N, N) tensor in the operator's work dtype."""
+    """K = A A^T as an (N, N) tensor in the operator's work dtype.  Narrow X
+    (int8 or packed codes, bf16 values) is upcast to f32 one block of rows
+    at a time and multiplied in full f32; the JAX package rounds w·x to
+    bf16 there (vampomi_tpu/ops/spectral.py:111-133), so its K differs by
+    that rounding."""
     acc = dm.wd
     X = dm.X
     m, n = dm.m_pad, int(dm.n)  # packed X has N/2 byte columns

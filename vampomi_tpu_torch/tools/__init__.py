@@ -70,7 +70,8 @@ def card_info(device: torch.device) -> dict:
 
 def random_codes(m: int, nb: int, dtype: torch.dtype, seed: int, device) -> torch.Tensor:
     """Uniform codes made on the device in row chunks: int8 in [-127, 127],
-    or uint8 bytes of two uniform nibbles in [0, 15] (codes in [-8, 7])."""
+    or uint8 bytes of two uniform nibbles in [0, 15] (codes in [-8, 7]);
+    for bfloat16, standard normal values rounded to bf16."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     lo, hi = (-127, 128) if dtype == torch.int8 else (0, 256)
@@ -78,7 +79,11 @@ def random_codes(m: int, nb: int, dtype: torch.dtype, seed: int, device) -> torc
     rows = max(1, (256 << 20) // nb)
     for r in range(0, m, rows):
         r1 = min(m, r + rows)
-        X[r:r1] = torch.randint(lo, hi, (r1 - r, nb), dtype=dtype, device=device, generator=g)
+        if dtype == torch.bfloat16:
+            X[r:r1] = torch.randn((r1 - r, nb), device=device, generator=g)
+        else:
+            X[r:r1] = torch.randint(lo, hi, (r1 - r, nb), dtype=dtype, device=device,
+                                    generator=g)
     return X
 
 
@@ -121,14 +126,15 @@ def bound_ms(nbytes: int, ops: int, ops_rate: float = F32_FLOPS) -> tuple[float,
 
 def matvec_bound(X: torch.Tensor, k: int, broadcast: bool,
                  ops_rate: float = F32_FLOPS) -> tuple[float, str]:
-    """bound_ms of one pass over the codes of X with k right-hand sides:
-    X Ys (Ys (N, k) in, (M, k) out) or, broadcast, X^T W (W (M, k) in,
-    (N, k) out), each byte once, at 2 operations per code and column."""
+    """bound_ms of one pass over the codes (or bf16 values) of X with k
+    right-hand sides: X Ys (Ys (N, k) in, (M, k) out) or, broadcast, X^T W
+    (W (M, k) in, (N, k) out), each byte once, at 2 operations per code and
+    column."""
     m = X.shape[0]
     codes = X.numel() * (2 if X.dtype == PACKED4_DTYPE else 1)
     n = codes // m
     vectors = 4 * k * (m + n)
-    return bound_ms(X.numel() + vectors, 2 * codes * k, ops_rate)
+    return bound_ms(X.numel() * X.element_size() + vectors, 2 * codes * k, ops_rate)
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor, scale: torch.Tensor) -> float:
