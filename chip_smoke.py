@@ -20,7 +20,9 @@ Phases (each prints its own lines; any failure ends the run non-zero):
                 three bf16 kernels likewise on bf16 X of the north-star
                 shape (20 GiB, freed after) and at ragged shapes, each
                 beside cuBLAS's X @ V.to(bfloat16), a rounder function
-                (logged; not their library yardstick).
+                (logged; not their library yardstick); the int8 and packed
+                kernels also on a rank's slab cut as a view X[333:1000] of
+                a larger X (rows off a 16-byte boundary, N % 16 != 0).
   2b. probe   — the five probe kernels (read floor, tensor cores) against
                 their plain versions and f64 at full and ragged shapes on the
                 same X, then the two measurement tools' entry functions at
@@ -113,6 +115,31 @@ Phases (each prints its own lines; any failure ends the run non-zero):
                 outputs on and off, launches checked exactly per run; then
                 SE, LOO, loo_std, test and predict on its dumps.
   9. doctor   — python -m vampomi_tpu_torch.doctor in a subprocess: exit 0.
+  10. ranks   — the markers split over torch.distributed ranks
+                (vampomi_tpu_torch/sharding.py), in subprocesses of this
+                script (--ranks-worker) and of the CLI: (a) the int8 north
+                star, its design made on the card chunk by chunk (65,536
+                rows a seed, so a rank makes only its own rows), the planted
+                y, beta and prior made once and passed through a file; 4
+                eigen iterations with --eigen-cache (rank 0 writes it), 4 of
+                auto with it warm (every rank on the loaded factor), 2
+                spectral, 2 CG (50 steps at most), as one process without a
+                group, and as two gloo ranks sharing the card (524,288
+                markers, 5 GiB of X each); eigen and CG as one NCCL rank
+                (world size 1), whose CSVs and dumps must be the group-less
+                run's byte for byte; the two ranks' gamw and eigenvalue sums
+                bitwise equal, their dumps within rtol 1e-4 and atol 2e-6
+                (CG 1e-3) of one process, every rank's launches and
+                collectives a run exact; one (N, 2) all_reduce timed under
+                gloo and NCCL, the wall an iteration and the peak memory a
+                rank.  (b) the CLI under python -m torch.distributed.run
+                with 3 ranks at N = 2,000 x Mt = 8,002 (ragged slabs), int8
+                and int4 with eigen and CG, every dump full length and
+                within rtol of the one-process CLI; a 3-rank checkpoint at
+                iteration 4 resumed to 8 by 3 ranks (CSVs and dumps byte-
+                identical to the straight run) and by one process (within
+                rtol); --model bin_class over 3 ranks must stop naming
+                ROADMAP.md.  Prints the {"ranks": {...}} line.
 
 The line before the last is the kernel record {"kernels": [...]}: seventeen
 kernels standing for the twelve TPU kernels of the repo, the int8 einsum
@@ -136,6 +163,7 @@ import hashlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -479,6 +507,20 @@ def phase_kernel(dev: str) -> tuple[torch.Tensor, torch.Tensor, dict]:
         Xr = random_codes(m, n if dtype == torch.int8 else n // 2, dtype, SEED + 3, dev)
         for k in ((1,) if name.startswith("atx_") and "batch" not in name else (1, 2, 3)):
             check_kernel(name, Xr, rhs(m if name.startswith("ax_batch") else n, k), timed=False)
+    # a rank's slab cut as a view X[lo:hi] of a larger X (chip_smoke phase
+    # 10, convert.design_from_arrays): an odd lo with N % 16 != 0 starts
+    # its rows off a 16-byte boundary, which the kernels read a unit at a time
+    for name, dtype, n in (("atx_int8", torch.int8, 1001), ("ax_batch_int8", torch.int8, 1001),
+                           ("atx_batch_int8", torch.int8, 1001),
+                           ("atx_packed4", PACKED4_DTYPE, 1002),
+                           ("ax_batch_packed4", PACKED4_DTYPE, 1002),
+                           ("atx_batch_packed4", PACKED4_DTYPE, 1002)):
+        nb = n if dtype == torch.int8 else n // 2
+        Xr = random_codes(1001, nb, dtype, SEED + 4, dev)[333:1000]
+        check(Xr.data_ptr() % 16 != 0, f"{name}: the slab view is 16-byte aligned")
+        for k in ((1,) if name in ("atx_int8", "atx_packed4") else (1, 2, 3)):
+            check_kernel(name, Xr, rhs(667 if name.startswith("ax_batch") else n, k),
+                         timed=False)
     # the X Ys kernels (R rows per warp): M not a multiple of R, and M below
     # R, on the byte path and on the 16-byte path; at N = 8,192, K = 8 reads
     # Ys through the read-only cache (256 KB, above the shared-memory cap)
@@ -1751,6 +1793,356 @@ def phase_gibbs_workflow(dev, log_dir: str, n: int = 2_000, m: int = 8_000, swee
         check(x1c[-1] > x1c[0], "cli --init-conf: x1 correlation did not rise")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: ranks — the main path with the markers split over processes
+
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+RANK_CHUNK = 65_536  # rows of the north-star design made from one seed
+# (label, solver, iterations, the solver that must run) of the runs of phase
+# 10 (a): eigen writes the eigen cache, auto then loads it (warm: eigen)
+RANK_RUNS = (("eigen", "eigen", 4, "eigen"), ("auto_warm", "auto", 4, "eigen"),
+             ("spectral", "spectral", 2, "spectral"), ("cg", "cg", 2, "cg"))
+NCCL_RUNS = (("eigen", "eigen", 4, "eigen"), ("cg", "cg", 2, "cg"))
+# across rank counts, f32 sums over markers in another order: the JAX
+# package's bar for an f32 work dtype across process counts
+# (tests/test_multihost.py:186-190), and for CG the card-against-CPU one
+# (PARITY_RTOL: it stops at rel-residual 1e-5 and may stop a step apart)
+RANK_RTOL = {"eigen": 1e-4, "spectral": 1e-4, "cg": PARITY_RTOL["cg"]}
+RANK_ATOL = 2e-6
+
+
+def within(a: np.ndarray, b: np.ndarray, rtol: float, atol: float | None = None) -> bool:
+    """|a - b| <= rtol |b| + atol elementwise; atol None: rtol times b's
+    largest entry (an entry near 0 carries only the vector's absolute
+    accuracy: at N = 2,000 the f32 sums in another order move r1's entries
+    by up to 3e-6 of its 0.25, on the CPU)."""
+    atol = rtol * float(np.abs(b).max()) if atol is None else atol
+    return bool(np.all(np.abs(a - b) <= rtol * np.abs(b) + atol))
+
+
+def rank_codes(lo: int, hi: int, dev) -> torch.Tensor:
+    """Rows [lo, hi) of the int8 north-star design, made on the card: chunk
+    c of RANK_CHUNK rows from its own seed, so a rank makes only its own
+    rows and every rank count gives the same design."""
+    X = torch.empty((hi - lo, NS_N), dtype=torch.int8, device=dev)
+    for c in range(lo // RANK_CHUNK, (hi - 1) // RANK_CHUNK + 1):
+        a, b = c * RANK_CHUNK, min((c + 1) * RANK_CHUNK, NS_M)
+        chunk = random_codes(b - a, NS_N, torch.int8, SEED + 100 + c, dev)
+        s, e = max(a, lo), min(b, hi)
+        X[s - lo:e - lo] = chunk[s - a:e - a]
+        del chunk
+    return X
+
+
+def rank_iteration_collectives(solver: str, k: int, steps: list[int]) -> list[int]:
+    """The collectives of each iteration of a sharded run with the EM update
+    off: an exact solver's alpha1, its ax_batch pass and the error measures
+    (3); CG's alpha1, ax of x1, x2 and the probe (3), the probe's alpha2 and
+    the error measures (2), the solve's start (its residual's pass and one
+    batch) and 3 a CG step (⟨d, p⟩, the step's batch, the pass)."""
+    return [3] * k if solver != "cg" else [8 + 3 * s for s in steps]
+
+
+def ranks_worker(spec_path: str) -> int:
+    """One process of phase 10 (a): under VAMPOMI_DISTRIBUTED=1 a rank of
+    torch.distributed.run's group on its slab, else one process without a
+    group.  Builds its rows of the design, runs spec["runs"] through
+    infere_linear with the launches counted from 0 before each run, times one
+    (N, 2) all_reduce, and writes its results to <out_dir>/<tag>_rank<r>.json."""
+    from vampomi_tpu_torch import sharding
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    distributed = os.environ.get("VAMPOMI_DISTRIBUTED") == "1"
+    dev = resolve_device(sharding.init_from_env("cuda") if distributed else "cuda")
+    shard = sharding.shard_for(NS_M, dev)
+    rank, lo, hi = (0, 0, NS_M) if shard is None else (shard.rank, shard.lo, shard.hi)
+    t0 = time.perf_counter()
+    dm = design_from_codes(rank_codes(lo, hi, dev), shard=shard)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    with np.load(spec["problem"]) as z:
+        y, beta = z["y"], z["beta"]
+        prior = dict(probs=z["probs"].tolist(), vars=z["vars"].tolist(), h2=float(z["h2"]))
+    runs = []
+    for label, solver, k, _ in spec["runs"]:
+        name = f"{spec['tag']}_{label}"
+        cfg = RunConfig(out_dir=spec["out_dir"], out_name=name, iterations=k,
+                        lmmse_solver=solver, stop_criteria_thr=0.0, learn_vars=0,
+                        learn_prior_delay=k, CG_max_iter=50, device=str(dev), seed=SEED,
+                        eigen_cache=spec["cache"], **prior)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        with engine_log(spec["log_dir"], f"{name}_rank{rank}"):
+            res = infere_linear(dm, y, cfg, true_signal=beta)
+        torch.cuda.synchronize()
+        runs.append(dict(label=label, solver=res.solver, gamw=float(res.gamw).hex(),
+                         lam_sum=(float(res.setup["eigen_lam_sum"]).hex()
+                                  if "eigen_lam_sum" in res.setup else None),
+                         loaded="eigen_cache_load" in res.setup, seconds=res.iter_seconds,
+                         collectives=res.iter_collectives,
+                         launches={n: c for n, c in launches().items() if c},
+                         peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                         x1_corr=[float(r[1]) for r in res.metrics_history]))
+    out = dict(rank=rank, slab=[lo, hi], built_s=built, runs=runs, all_reduce_ms=None,
+               backend=None if shard is None else shard.backend)
+    if shard is not None:
+        import torch.distributed as dist
+
+        t = torch.ones((NS_N, 2), device=dev)
+        times = []
+        for i in range(23):
+            torch.cuda.synchronize()
+            ta = time.perf_counter()
+            dist.all_reduce(t, group=shard.group)
+            torch.cuda.synchronize()
+            if i >= 3:
+                times.append(1e3 * (time.perf_counter() - ta))
+        out["all_reduce_ms"] = float(np.median(times))
+        dist.destroy_process_group()
+    with open(os.path.join(spec["out_dir"], f"{spec['tag']}_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def torchrun(nproc: int, args: list[str], log_path: str) -> subprocess.Popen:
+    """`python -m torch.distributed.run --standalone --nproc-per-node nproc
+    ARGS` with VAMPOMI_DISTRIBUTED=1, its output to log_path; nproc 0: plain
+    `python ARGS`, one process without a group."""
+    head = ([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+             str(nproc)] if nproc else [sys.executable])
+    env = dict(os.environ)
+    if nproc:
+        env["VAMPOMI_DISTRIBUTED"] = "1"
+    else:
+        env.pop("VAMPOMI_DISTRIBUTED", None)
+    f = open(log_path, "w")
+    p = subprocess.Popen(head + args, cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)
+    f.close()
+    return p
+
+
+def wait(p: subprocess.Popen, what: str, log_path: str, ok: bool = True) -> str:
+    """Wait for p (at most 600 s, then kill it) and return its output; it
+    must exit 0 when `ok`."""
+    try:
+        p.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.wait()
+        fail(f"{what}: killed after 600 s")
+    with open(log_path) as f:
+        text = f.read()
+    if ok:
+        check(p.returncode == 0, f"{what}: exit {p.returncode}: {text[-3000:]}")
+    return text
+
+
+def rank_group(nproc: int, tag: str, runs, out_dir: str, log_dir: str, problem: str) -> list:
+    """Phase 10 (a)'s runs as `nproc` ranks (0: one process, no group); each
+    rank's results."""
+    spec = os.path.join(out_dir, f"{tag}.json")
+    with open(spec, "w") as f:
+        json.dump(dict(tag=tag, runs=runs, out_dir=out_dir, log_dir=log_dir, problem=problem,
+                       cache=os.path.join(out_dir, f"{tag}_eigen.npz")), f)
+    log_path = os.path.join(log_dir, f"{tag}.log")
+    t0 = time.perf_counter()
+    wait(torchrun(nproc, [os.path.join(ROOT, "chip_smoke.py"), "--ranks-worker", spec],
+                  log_path), f"ranks {tag}", log_path)
+    res = []
+    for r in range(max(nproc, 1)):
+        with open(os.path.join(out_dir, f"{tag}_rank{r}.json")) as f:
+            res.append(json.load(f))
+    log(f"[ranks] {tag}: {max(nproc, 1)} process(es), backend {res[0]['backend']}, in "
+        f"{time.perf_counter() - t0:.1f}s (design rows built in "
+        f"{[round(x['built_s'], 2) for x in res]} s)")
+    return res
+
+
+def check_rank_runs(tag: str, res: list, runs, out_dir: str) -> None:
+    """Every rank ran the solver it must, holds the bits of rank 0, and
+    launched each kernel and ran each collective exactly as often as its
+    runs need (the CG steps from rank 0's trace)."""
+    for i, (label, _, k, expect) in enumerate(runs):
+        steps = (_trace_steps(os.path.join(out_dir, f"{tag}_{label}_trace.jsonl"))
+                 if expect == "cg" else [])
+        want = exact_launches("int8", expect, k, steps)
+        for r in res:
+            run = r["runs"][i]
+            where = f"ranks {tag} rank {r['rank']} {label}"
+            check(run["solver"] == expect, f"{where}: ran {run['solver']}, want {expect}")
+            check((run["gamw"], run["lam_sum"]) == (res[0]["runs"][i]["gamw"],
+                                                    res[0]["runs"][i]["lam_sum"]),
+                  f"{where}: gamw or the eigenvalues' sum differ from rank 0's")
+            check(run["launches"] == want, f"{where}: launches {run['launches']}, want {want}")
+            if r["backend"] is not None:
+                want_c = rank_iteration_collectives(expect, k, steps)
+                check(run["collectives"] == want_c,
+                      f"{where}: collectives {run['collectives']}, want {want_c}")
+            if expect == "eigen":  # the eigen run writes the cache, auto_warm loads it
+                check(run["loaded"] == (label == "auto_warm"),
+                      f"{where}: eigen cache {'loaded' if run['loaded'] else 'built'}")
+
+
+def phase_ranks_main(dev: str, log_dir: str, out_dir: str) -> dict:
+    """Phase 10 (a): the int8 north-star main path as one process without a
+    group, one NCCL rank (world size 1) and two gloo ranks sharing the card
+    (524,288 markers and 5 GiB of X each)."""
+    t0 = time.perf_counter()
+    X = rank_codes(0, NS_M, dev)
+    dm = design_from_codes(X)
+    y, beta, prior = planted_problem(dm, NS_M // 1024)
+    problem = os.path.join(out_dir, "ranks_problem.npz")
+    np.savez(problem, y=y, beta=beta, probs=prior["probs"], vars=prior["vars"], h2=prior["h2"])
+    del dm, X
+    torch.cuda.empty_cache()
+    log(f"[ranks] planted problem on the chunked design in {time.perf_counter() - t0:.1f}s")
+    one = rank_group(0, "r1", RANK_RUNS, out_dir, log_dir, problem)
+    check_rank_runs("r1", one, RANK_RUNS, out_dir)
+    nccl = rank_group(1, "rn", NCCL_RUNS, out_dir, log_dir, problem)
+    check(nccl[0]["backend"] == "nccl", f"one rank ran {nccl[0]['backend']}, not nccl")
+    check_rank_runs("rn", nccl, NCCL_RUNS, out_dir)
+    same = 0
+    for label, _, k, _ in NCCL_RUNS:
+        names = [f"{label}_{c}.csv" for c in ("metrics", "params", "prior")]
+        names += [f"{label}_{kind}it_{i}.bin" for kind in ("", "r1_") for i in range(1, k + 1)]
+        for f in names:
+            check(_bytes(os.path.join(out_dir, f"r1_{f}")) == _bytes(os.path.join(out_dir, f"rn_{f}")),
+                  f"ranks: one NCCL rank's {f} is not the run without a group's, byte for byte")
+        same += len(names)
+    log(f"[ranks] one NCCL rank: {same} CSVs and dumps byte-identical to the run without a group")
+    two = rank_group(2, "r2", RANK_RUNS, out_dir, log_dir, problem)
+    check(two[0]["backend"] == "gloo", f"two ranks on one card ran {two[0]['backend']}, not gloo")
+    check_rank_runs("r2", two, RANK_RUNS, out_dir)
+    worst = {}
+    for i, (label, _, k, expect) in enumerate(RANK_RUNS):
+        for it in range(1, k + 1):
+            for kind in ("", "r1_"):
+                a = read_bin_slab(os.path.join(out_dir, f"r2_{label}_{kind}it_{it}.bin"), NS_M)
+                b = read_bin_slab(os.path.join(out_dir, f"r1_{label}_{kind}it_{it}.bin"), NS_M)
+                check(within(a, b, RANK_RTOL[expect], RANK_ATOL),
+                      f"ranks: two ranks' {label} {kind}it_{it} past rtol {RANK_RTOL[expect]}")
+                worst[label] = max(worst.get(label, 0.0), float(np.max(np.abs(a - b))))
+    iteration_ms = {}
+    for tag, res in (("1", one), ("1_nccl", nccl), ("2", two)):
+        iteration_ms[tag] = {run["label"]: 1e3 * float(np.median(run["seconds"][1:]))
+                             for run in res[0]["runs"]}
+    peak = {f"{tag}_rank{r['rank']}": max(run["peak_gib"] for run in r["runs"])
+            for tag, res in (("1", one), ("2", two)) for r in res}
+    out = dict(all_reduce_ms={"gloo_2_ranks": two[0]["all_reduce_ms"],
+                              "nccl_1_rank": nccl[0]["all_reduce_ms"]},
+               iteration_ms=iteration_ms, peak_gib=peak, max_abs_diff_2_vs_1=worst,
+               launches_per_rank={run["label"]: run["launches"] for run in two[0]["runs"]},
+               collectives_per_rank={run["label"]: run["collectives"] for run in two[0]["runs"]},
+               x1_corr={run["label"]: run["x1_corr"] for run in two[0]["runs"]})
+    log(f"[ranks] two gloo ranks sharing the card: within rtol {RANK_RTOL} atol {RANK_ATOL} of "
+        f"one process (max abs diff {worst}); one (N, 2) all_reduce {two[0]['all_reduce_ms']:.3f} "
+        f"ms under gloo (2 ranks), {nccl[0]['all_reduce_ms']:.3f} ms under NCCL (1 rank); "
+        f"median ms an iteration (its 2..k) {iteration_ms}; peak GiB {peak}; done in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def phase_ranks_cli(dev: str, log_dir: str, n: int = 2_000, m: int = 8_002, iters: int = 8,
+                    split: int = 4) -> dict:
+    """Phase 10 (b): the CLI under torch.distributed.run with 3 ranks on the
+    card (slabs of 2,668, 2,667 and 2,667 markers): int8 and int4, eigen
+    and CG, against the one-process CLI; a 3-rank checkpoint at iteration
+    `split` resumed by 3 ranks (CSVs and dumps byte-identical to the
+    straight 3-rank run) and by one process (within rtol); probit refused."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="vampomi_ranks_cli_") as d:
+        fx = simulate_iid(n=n, m=m, lam=0.1, h2=0.8, seed=SEED)
+        paths = write_fixture(fx, d, "ex")
+
+        def argv(sub, dtype, solver, k, *extra):
+            os.makedirs(os.path.join(d, sub), exist_ok=True)
+            return ["--run-mode", "infere", "--meth-file", paths["bin"], "--phen-file",
+                    paths["phen"], "--true-signal-file", paths["ts"], "--N", str(n), "--Mt",
+                    str(m), "--out-dir", os.path.join(d, sub), "--out-name", "r",
+                    "--iterations", str(k), "--stop-criteria-thr", "0", "--h2", "0.8",
+                    "--probs", "0.9,0.07,0.03", "--vars", "0.0,0.001,0.01", "--device", dev,
+                    "--compute-dtype", dtype, "--lmmse-solver", solver, "--seed", str(SEED),
+                    *extra]
+
+        def cli3(sub, *args):
+            lp = os.path.join(log_dir, f"ranks_cli_{sub}.log")
+            procs.append(torchrun(3, ["-m", "vampomi_tpu_torch.cli", *args], lp))
+            return procs[-1], lp
+
+        procs = []
+        try:
+            names = _ranks_cli_runs(d, dev, log_dir, m, iters, split, argv, cli3)
+        finally:  # nothing started here outlives a failed check
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    took = time.perf_counter() - t0
+    log(f"[ranks] cli: a 3-rank checkpoint at iteration {split} resumed to {iters} by 3 ranks "
+        f"({len(names)} files byte-identical to the straight run) and by one process (within "
+        f"rtol {RANK_RTOL['eigen']}); probit over 3 ranks refused naming ROADMAP.md; {took:.1f}s")
+    return dict(cli_seconds=took, resume_byte_identical_files=len(names))
+
+
+def _ranks_cli_runs(d: str, dev: str, log_dir: str, m: int, iters: int, split: int, argv,
+                    cli3) -> list[str]:
+    """The runs and checks of phase_ranks_cli in the fixture's directory d;
+    returns the files the 3-rank resume repeats byte for byte."""
+    # the 3-rank runs start together (the straight ones, the checkpoint's
+    # first half, probit) and the one-process runs go on here meanwhile
+    runs = [("int8", "eigen", iters), ("int8", "cg", split), ("int4", "eigen", split),
+            ("int4", "cg", split)]
+    started = [cli3(f"r3_{dt}_{s}", *argv(f"r3_{dt}_{s}", dt, s, k)) for dt, s, k in runs]
+    ck = os.path.join(d, "part", "ck.npz")
+    first, lp_first = cli3("part", *argv("part", "int8", "eigen", split, "--checkpoint-file", ck))
+    probit, lp_probit = cli3("probit", *argv("probit", "int8", "eigen", 2, "--model",
+                                             "bin_class"))
+    for dt, s, k in runs:
+        with engine_log(log_dir, f"ranks_cli_r1_{dt}_{s}"):
+            check(cli.main(argv(f"r1_{dt}_{s}", dt, s, k)) == 0, f"ranks cli {dt} {s}")
+    for (dt, s, k), (p, lp) in zip(runs, started):
+        wait(p, f"ranks cli 3 ranks {dt} {s}", lp)
+    wait(first, "ranks cli checkpoint run", lp_first)
+    text = wait(probit, "ranks cli probit", lp_probit, ok=False)
+    check(probit.returncode != 0 and "ROADMAP.md" in text,
+          f"ranks cli: probit over 3 ranks did not stop naming ROADMAP.md: {text[-2000:]}")
+    for dt, s, k in runs:
+        for it in range(1, k + 1):
+            for kind in ("", "r1_"):
+                a = read_bin_slab(os.path.join(d, f"r3_{dt}_{s}", f"r_{kind}it_{it}.bin"), m)
+                b = read_bin_slab(os.path.join(d, f"r1_{dt}_{s}", f"r_{kind}it_{it}.bin"), m)
+                check(os.path.getsize(os.path.join(d, f"r3_{dt}_{s}", f"r_{kind}it_{it}.bin"))
+                      == 8 * m and within(a, b, RANK_RTOL[s]),
+                      f"ranks cli {dt} {s}: 3 ranks' {kind}it_{it} not within rtol of one")
+    log(f"[ranks] cli: 3 ranks (slabs 2,668 / 2,667 / 2,667) against one process, int8 and "
+        f"int4, eigen and CG: every dump full length and within rtol {RANK_RTOL} (atol: "
+        f"rtol times the dump's largest entry)")
+    check(load_checkpoint(ck)["iteration"] == split, "ranks cli: checkpoint iteration")
+    os.makedirs(os.path.join(d, "one"))
+    ck1 = os.path.join(d, "one", "ck.npz")
+    shutil.copyfile(ck, ck1)
+    resumed, lp = cli3("part", *argv("part", "int8", "eigen", iters, "--resume-file", ck))
+    with engine_log(log_dir, "ranks_cli_one_resumed"):
+        check(cli.main(argv("one", "int8", "eigen", iters, "--resume-file", ck1)) == 0,
+              "ranks cli: one process resuming the 3-rank checkpoint")
+    wait(resumed, "ranks cli 3 ranks resuming", lp)
+    names = [f"r_{c}.csv" for c in ("metrics", "params", "prior")]
+    names += [f"r_{kind}it_{i}.bin" for kind in ("", "r1_") for i in range(1, iters + 1)]
+    straight = os.path.join(d, "r3_int8_eigen")
+    for f in names:
+        check(_bytes(os.path.join(d, "part", f)) == _bytes(os.path.join(straight, f)),
+              f"ranks cli: the 3-rank resume's {f} is not the straight run's, byte for byte")
+    for it in range(split + 1, iters + 1):
+        for kind in ("", "r1_"):
+            a = read_bin_slab(os.path.join(d, "one", f"r_{kind}it_{it}.bin"), m)
+            b = read_bin_slab(os.path.join(straight, f"r_{kind}it_{it}.bin"), m)
+            check(within(a, b, RANK_RTOL["eigen"]),
+                  f"ranks cli: one process's resume {kind}it_{it} past rtol")
+    return names
+
+
 def main_dumps(out_dir: str, dtype: str, solver: str, k: int) -> tuple[str, str, float]:
     """The last iteration's estimate and r1 dumps of a main-path run, and the
     gam1 its params CSV pairs with that r1."""
@@ -1767,8 +2159,13 @@ def main(argv=None) -> int:
     p.add_argument("--gibbs-reference", default="", metavar="CU",
                    help="an earlier gibbs_block.cu to hold the Gibbs kernel against in "
                         "phase 7: bitwise, and timed in turns")
+    p.add_argument("--ranks-worker", default="", metavar="SPEC", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    if args.ranks_worker:  # one process of phase 10, started by phase 10
+        return ranks_worker(args.ranks_worker)
     dev = phase_device()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
     with tempfile.TemporaryDirectory(prefix="vampomi_smoke_") as out_dir:
         log_dir = args.log_dir or out_dir
         os.makedirs(log_dir, exist_ok=True)
@@ -1828,6 +2225,8 @@ def main(argv=None) -> int:
         del main16
         torch.cuda.empty_cache()
         phase_doctor()
+        ranks = phase_ranks_main(dev, log_dir, out_dir)
+        ranks.update(phase_ranks_cli(dev, log_dir))
         counts.update(probe_counts)
         for name, c in counts.items():
             check(c > 0, f"{name} was never launched on its own path")
@@ -1837,6 +2236,7 @@ def main(argv=None) -> int:
                     **{key: recs[name][key] for key in ("max_abs_err", "ms", "plain_ms",
                                                         "bound_ms", "bound_by", "library_ms")})
                for name, k in KERNELS.items()]
+    print(json.dumps({"ranks": dict(card=smi, **ranks)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -15,11 +15,22 @@ scripts/conf_gibbs_init.py).  `--profile-dir` exits with a message naming
 ROADMAP.md; it is not replaced by other behaviour.
 
     python -m vampomi_tpu_torch.cli --device cuda --meth-file x.bin ...
+
+Linear `--run-mode infere` also runs with the markers split over ranks, one
+process a rank, each holding a contiguous slab (sharding.py):
+
+    VAMPOMI_DISTRIBUTED=1 python -m torch.distributed.run --nproc-per-node P \
+        -m vampomi_tpu_torch.cli ...
+
+The backend is gloo for `--device cpu`, nccl with a card per local rank,
+gloo when ranks share a card.  Probit and the other run modes refuse more
+than one rank, naming ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from .config import RunConfig, resolve_device
@@ -159,22 +170,52 @@ def parse_config(argv: list[str]) -> RunConfig:
     return cfg
 
 
+def _distributed() -> bool:
+    """VAMPOMI_DISTRIBUTED=1: one process a rank (the JAX package's switch,
+    vampomi_tpu/cli.py:171-183)."""
+    return os.environ.get("VAMPOMI_DISTRIBUTED") == "1"
+
+
 def _reject_unported(cfg: RunConfig) -> None:
-    """SystemExit naming ROADMAP.md for the flag the port does not run yet,
-    --profile-dir."""
+    """SystemExit naming ROADMAP.md for what the port does not run yet:
+    --profile-dir, and more than one rank for anything but linear
+    --run-mode infere."""
     if cfg.profile_dir:
         raise SystemExit(
             "vampomi_tpu_torch: --profile-dir not ported yet — see the "
             "port's queue in ROADMAP.md (use the JAX package vampomi_tpu meanwhile)")
+    world = int(os.environ.get("WORLD_SIZE", "1")) if _distributed() else 1
+    if world > 1 and (cfg.model != "linear" or cfg.run_mode != "infere"):
+        raise SystemExit(
+            f"vampomi_tpu_torch: --model {cfg.model} --run-mode {cfg.run_mode} over {world} "
+            "ranks not ported yet — only linear --run-mode infere runs sharded; see the "
+            "port's queue in ROADMAP.md (run it as one process meanwhile)")
 
 
 def main(argv: list[str] | None = None) -> int:
     """Dispatch the run mode as vampomi_tpu/cli.py:199-254 does: infere
     (with the covariates of `--cov-file` when `--C` > 0) and
     association_test load the training split, test and predict the test
-    split (`--meth-file-test`, `--phen-file-test`, `--N-test`)."""
+    split (`--meth-file-test`, `--phen-file-test`, `--N-test`).  Under
+    VAMPOMI_DISTRIBUTED=1 the rank's process group starts first, before
+    anything touches the device, and ends with the run."""
     cfg = parse_config(sys.argv[1:] if argv is None else argv)
-    device = resolve_device(cfg.device)
+    if not _distributed():
+        return _run(cfg, resolve_device(cfg.device), None)
+    import torch.distributed as dist
+
+    from .sharding import init_from_env, shard_for
+
+    device = resolve_device(init_from_env(cfg.device))
+    try:
+        return _run(cfg, device, shard_for(cfg.Mt, device))
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(cfg: RunConfig, device, shard) -> int:
+    """The run mode of `cfg` on `device`; linear infere on the rank's slab of
+    `shard` (None: one process)."""
     dtype = cfg.resolved_compute_dtype()
 
     from .dataset import load_dataset
@@ -182,7 +223,8 @@ def main(argv: list[str] | None = None) -> int:
     if cfg.run_mode == "infere":
         ds = load_dataset(cfg.meth_file, cfg.phen_file, cfg.N, cfg.Mt, cfg.model,
                           dtype, device, alpha_scale=cfg.alpha_scale,
-                          cov_file=cfg.cov_file, c=cfg.C)
+                          cov_file=cfg.cov_file, c=cfg.C,
+                          shard=shard if cfg.model == "linear" else None)
     elif cfg.run_mode == "association_test":
         ds = load_dataset(cfg.meth_file, cfg.phen_file, cfg.N, cfg.Mt, cfg.model,
                           dtype, device, alpha_scale=cfg.alpha_scale)

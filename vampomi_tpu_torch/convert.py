@@ -19,17 +19,29 @@ from .ops.eigen import EigenFactor
 from .ops.operator import DesignMatrix
 from .ops.spectral import GramFactor, ShiftInverse
 from .prior.mixture import MixturePrior
+from .sharding import Shard, local_rows
 
 # X dtypes torch takes from numpy as they are (uint8: packed int4, two
 # nibbles a byte)
 _NP_DTYPES = {np.dtype(t) for t in (np.int8, np.uint8, np.float32, np.float64)}
+# the marker-length arrays of the engines' checkpoints (the rest are N- or
+# C-length, or O(1))
+_M_ARRAYS = ("x1_hat", "r1", "r2", "mu_warm")
 
 
-def design_from_arrays(d: dict, device: str | torch.device = "cpu") -> DesignMatrix:
+def design_from_arrays(d: dict, device: str | torch.device = "cpu",
+                       shard: Shard | None = None) -> DesignMatrix:
     """DesignMatrix from `X, mave, msig, mmask, inv_sqrt_n, n, mt`.  X keeps
     its dtype (f64, f32, bf16, int8 or packed-int4 uint8); the vectors go to
-    the work dtype."""
-    X = np.asarray(d["X"])
+    the work dtype.  With a `shard`, the rank's rows [lo, hi) of the Mt real
+    markers: the padding rows a JAX mesh adds past Mt (mmask 0) are
+    dropped, since the port's slabs have none."""
+    mt = int(np.asarray(d["mt"]))
+
+    def rows(a):
+        return np.asarray(a) if shard is None else local_rows(np.asarray(a)[:mt], shard)
+
+    X = rows(d["X"])
     if X.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: the bits as they are
         Xt = torch.from_numpy(np.ascontiguousarray(X).view(np.int16).copy()).view(torch.bfloat16)
     elif X.dtype in _NP_DTYPES:
@@ -43,12 +55,13 @@ def design_from_arrays(d: dict, device: str | torch.device = "cpu") -> DesignMat
 
     return DesignMatrix(
         X=Xt.to(device),
-        mave=vec(d["mave"]),
-        msig=vec(d["msig"]),
-        mmask=vec(d["mmask"]),
+        mave=vec(rows(d["mave"])),
+        msig=vec(rows(d["msig"])),
+        mmask=vec(rows(d["mmask"])),
         inv_sqrt_n=vec(d["inv_sqrt_n"]).reshape(()),
         n=float(np.asarray(d["n"])),
-        mt=float(np.asarray(d["mt"])),
+        mt=float(mt),
+        shard=shard,
     )
 
 
@@ -116,7 +129,11 @@ def checkpoint_from_jax(ck: dict | str, model: str, solver: str) -> dict:
     the run draws nothing that feeds a result: the eigen and spectral
     solvers (their traces are closed forms, the probe goes unused), for the
     linear model and, since the checkpoint holds p1, the probit one.  Under
-    CG every iteration draws a Rademacher probe, so this raises."""
+    CG every iteration draws a Rademacher probe, so this raises.
+
+    A run on a padded JAX mesh (meta m_pad > mt) saved its marker vectors
+    with the padding rows; they are cut to the Mt real markers, and m_pad
+    becomes mt, as in every checkpoint of the port."""
     from .engine.checkpoint import JAX_FORMAT_VERSION, load_checkpoint
 
     if isinstance(ck, str):
@@ -130,4 +147,10 @@ def checkpoint_from_jax(ck: dict | str, model: str, solver: str) -> dict:
             "PRNG key the checkpoint holds cannot be replayed by the port's "
             "torch.Generator (use --lmmse-solver eigen or spectral, or resume it "
             "with the JAX package)")
+    meta = ck.get("meta", {})
+    if "mt" in meta and "m_pad" in meta and int(meta["m_pad"]) > int(meta["mt"]):
+        mt = int(meta["mt"])
+        arrays = {k: (np.asarray(v)[:mt] if k in _M_ARRAYS else v)
+                  for k, v in ck["arrays"].items()}
+        ck = dict(ck, arrays=arrays, meta=dict(meta, m_pad=np.asarray(mt)))
     return dict(ck, rng_state=None)

@@ -18,7 +18,9 @@ Format versions:
     here; `convert.checkpoint_from_jax` decides where such a file may resume.
 
 Writes are atomic: a per-pid tmp file, flushed and fsynced, then renamed over
-the target, so a killed run never leaves a torn file.
+the target, so a killed run never leaves a torn file.  Of the ranks of a
+sharded run only rank 0 saves; its file holds the full Mt vectors, so a
+checkpoint resumes on any number of ranks.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+from ..sharding import is_writer
 
 FORMAT_VERSION = 2
 JAX_FORMAT_VERSION = 1
@@ -45,9 +49,12 @@ def atomic_savez(path: str, **payload) -> None:
 
 def save_checkpoint(path: str, *, iteration: int, arrays: dict, scalars: dict,
                     prior: dict, rng_state, meta: dict | None = None) -> None:
-    """Write the checkpoint atomically.  `prior` holds host arrays `probs`,
-    `vars`, `active`; `rng_state` is `torch.Generator.get_state()` (or its
-    bytes)."""
+    """Write the checkpoint atomically, on rank 0 alone (every rank holds
+    the same replicated state; several writers would tear the file).
+    `prior` holds host arrays `probs`, `vars`, `active`; `rng_state` is
+    `torch.Generator.get_state()` (or its bytes)."""
+    if not is_writer():
+        return
     payload = {
         "__version__": np.asarray(FORMAT_VERSION),
         "__iteration__": np.asarray(iteration),
@@ -112,11 +119,12 @@ def check_meta(ck: dict, **expected) -> None:
 def load_resume(path: str, *, model: str, solver: str, **meta) -> dict:
     """The checkpoint of `--resume-file`, checked against this run: its meta
     (model, shapes) must match, and a JAX-written file must be one the
-    port can continue under `solver` (convert.checkpoint_from_jax)."""
+    port can continue under `solver` (convert.checkpoint_from_jax, which
+    cuts a padded mesh run's vectors to Mt first)."""
     ck = load_checkpoint(path)
-    check_meta(ck, model=model, **meta)
     if ck["version"] == JAX_FORMAT_VERSION:
         from ..convert import checkpoint_from_jax
 
         ck = checkpoint_from_jax(ck, model=model, solver=solver)
+    check_meta(ck, model=model, **meta)
     return ck

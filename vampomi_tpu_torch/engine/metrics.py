@@ -4,7 +4,10 @@ Reference: `vamp::err_measures` (src/vamp.cpp:760-852) fills the linear
 engine's 6-slot metrics row [R2 denoising, x1 corr, R2 LMMSE, x2 corr, z1
 corr^2, z2 corr^2]; the probit engine counts the confusion matrix of its
 labels (src/vamp_probit.cpp:631-652).  Vector math stays in the input's
-dtype; the outputs are f64 0-dim tensors, the counts int64.
+dtype; the outputs are f64 0-dim tensors, the counts int64.  The signal
+metrics run over markers: a sharded engine sums their four inner products
+(`signal_sums`) over the ranks in its own batch, then finishes them
+(`signal_from_sums`).
 """
 
 from __future__ import annotations
@@ -20,15 +23,29 @@ def _corr(a, b):
     return num / torch.where(den == 0.0, torch.ones_like(den), den)
 
 
-def signal_metrics(x_hat, true_signal, n):
-    """Corr(x_hat, x0) and L2 error of x_hat/sqrt(N) vs x0 (file units)."""
+def signal_sums(x_hat, true_signal, n) -> torch.Tensor:
+    """The four inner products over markers the signal metrics need, in
+    x_hat's dtype: [x·t, x·x, t·t, d·d] with d = x/sqrt(N) - t."""
     ts = true_signal.to(x_hat.dtype)
     inv_sqrt_n = (1.0 / torch.sqrt(f64(n, x_hat.device))).to(x_hat.dtype)
-    corr = _corr(x_hat, ts)
     diff = x_hat * inv_sqrt_n - ts
-    ts2 = torch.dot(ts, ts)
-    l2 = torch.sqrt(torch.dot(diff, diff) / torch.where(ts2 == 0.0, torch.ones_like(ts2), ts2))
+    return torch.stack([torch.dot(x_hat, ts), torch.dot(x_hat, x_hat), torch.dot(ts, ts),
+                        torch.dot(diff, diff)])
+
+
+def signal_from_sums(s: torch.Tensor):
+    """Corr(x_hat, x0) and the L2 error from signal_sums' four (summed)
+    inner products."""
+    xt, xx, tt, dd = s
+    den = torch.sqrt(xx * tt)
+    corr = xt / torch.where(den == 0.0, torch.ones_like(den), den)
+    l2 = torch.sqrt(dd / torch.where(tt == 0.0, torch.ones_like(tt), tt))
     return corr.to(torch.float64), l2.to(torch.float64)
+
+
+def signal_metrics(x_hat, true_signal, n):
+    """Corr(x_hat, x0) and L2 error of x_hat/sqrt(N) vs x0 (file units)."""
+    return signal_from_sums(signal_sums(x_hat, true_signal, n))
 
 
 def prediction_metrics(z_hat, y):

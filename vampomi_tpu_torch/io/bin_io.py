@@ -8,8 +8,11 @@ Formats (reference: SURVEY §2.4):
   * vector `.bin` — Mt float64 (estimates, r1, true signals, p-values;
                     reference src/utilities.cpp:241-267)
 
-The port is single-process and uses the pure-numpy readers and writers of
-the JAX package; it never loads that package's native extension.
+The port uses the pure-numpy readers and writers of the JAX package; it
+never loads that package's native extension.  Ranks of a sharded run read
+their own slab of a meth file (`read_meth_bin`'s `start_marker`) and write
+their own slab of an artifact (`write_marker_file`'s `start`), so the bytes
+on disk are those of one process.
 """
 
 from __future__ import annotations
@@ -186,10 +189,13 @@ class HostStager:
         return HostCopy(host, done)
 
 
-def write_marker_file(path: str, vec: torch.Tensor, mt: int, divisor: float) -> None:
-    """Write an M-vector tensor (on any device) to an f64 artifact file,
+def write_marker_file(path: str, vec: torch.Tensor, mt: int, divisor: float,
+                      start: int = 0) -> None:
+    """Write an M-vector tensor (on any device) to an f64 artifact file, at
+    element offset `start` (a rank's slab: the POSIX counterpart of the
+    reference's per-rank MPI_File_set_view writes, src/utilities.cpp:241-249),
     truncated to the Mt real markers and divided by `divisor` on the host in
     f64 — division, not reciprocal multiplication, for bit parity with the
     reference's x/sqrt(N) (src/vamp.cpp:237-239) and the JAX package."""
     host = vec.detach().cpu().numpy().astype(np.float64)
-    write_bin_slab(path, host[:mt] / divisor)
+    write_bin_slab(path, host[:mt - start] / divisor, start)

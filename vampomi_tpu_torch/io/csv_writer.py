@@ -1,4 +1,4 @@
-# Copied from vampomi_tpu/io/csv_writer.py, without the jax rank check (:20-33): the port is single-process.
+# Copied from vampomi_tpu/io/csv_writer.py, its rank check (:20-33) on torch.distributed's rank (sharding.is_writer).
 """Fixed-width positional CSV writer, byte-compatible with the reference.
 
 The reference writes row k at byte offset k * strlen(row) with fields
@@ -12,17 +12,25 @@ from __future__ import annotations
 
 import os
 
+from ..sharding import is_writer
+
+# CSV files are written by rank 0 only, like the reference's rank-0 MPI-IO
+# writes (src/utilities.cpp:366-401): a shared out_dir must not see
+# create/recreate races or duplicate positional writes from other ranks
+
 
 class PositionalCSV:
     def __init__(self, path: str, header: list[str], create: bool = True):
         self.path = path
-        if create:
+        if create and is_writer():
             if os.path.exists(path):
                 os.remove(path)  # reference MPI_File_delete (src/vamp.cpp:857)
             with open(path, "wb") as f:
                 f.write((", ".join(header) + "\n").encode())
 
     def write_row(self, iteration: int, values: list[float]) -> None:
+        if not is_writer():
+            return
         values = [float(v) for v in values]
         row = "%5d" % iteration
         for v in values:

@@ -20,6 +20,13 @@ is unusable; on the card cuSOLVER's eigh serves, so it is not ported.
 `build_eigen_cached` keeps the factor in an `.npz` across runs (the JAX
 package's `--eigen-cache`, eigen.py:818-932), validated against the live K
 by a fingerprint of this package's own (see `fingerprint`).
+
+Sharded over markers, K is the same on every rank, but the factor is made
+once: rank 0 alone builds it (or loads, or builds and writes the cache) and
+broadcasts the verdict, U and lam, so every rank holds the same factor by
+construction (vampomi_tpu/ops/eigen.py:875-932).  The JAX package also
+shards U's columns over its mesh (eigen.py:795-815); here every rank holds
+all of U (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..sharding import Shard, broadcast_, broadcast_from0
 from .operator import DesignMatrix, atx, ax, f64
 from .spectral import GramFactor, _trace_closed_forms
 
@@ -53,11 +61,49 @@ class EigenFactor(NamedTuple):
         return self.U.shape[0]
 
 
-def build_eigen(fac: GramFactor) -> tuple[EigenFactor, dict]:
+def build_eigen(fac: GramFactor, shard: Shard | None = None) -> tuple[EigenFactor, dict]:
     """Diagonalize K = fac.K.  Returns (EigenFactor, diagnostics) with
     diagnostics = {"resid": ||K U - U lam||_F / ||K||_F,
     "ortho": max |U^T U - I|}, both measured on U in the work dtype
-    against K in f64."""
+    against K in f64.  With a shard, rank 0's factor on every rank."""
+    return _from_rank0(fac, shard, lambda: _build_eigen(fac))
+
+
+def _from_rank0(fac: GramFactor, shard: Shard | None, make) -> tuple[EigenFactor, dict]:
+    """make() → (EigenFactor, diagnostics) on rank 0 alone, its factor and
+    its verdicts (residual, orthogonality, cache hit) broadcast to the other
+    ranks, whose diagnostics carry "load_s", the wait, on a hit.  Without
+    a shard, make() itself."""
+    if shard is None:
+        return make()
+    t0 = time.perf_counter()
+    if shard.rank == 0:
+        ef, diag = make()
+        # U goes out in rank 0's own layout (eigh's is column-major), so that
+        # its products round alike on every rank and as without a shard
+        colmajor = not ef.U.is_contiguous() and ef.U.T.is_contiguous()
+        buf, lam = (ef.U.T if colmajor else ef.U).contiguous(), ef.lam.contiguous()
+        head = [diag["resid"], diag["ortho"], diag.get("loaded", False), "loaded" in diag,
+                colmajor]
+    else:
+        buf = torch.empty_like(fac.K, memory_format=torch.contiguous_format)
+        lam = torch.empty(fac.n, dtype=torch.float64, device=fac.K.device)
+        head = [0.0] * 5
+    resid, ortho, loaded, cached, colmajor = broadcast_from0(head, shard)
+    broadcast_(buf, shard)
+    broadcast_(lam, shard)
+    ef = EigenFactor(U=buf.T if colmajor else buf, lam=lam)
+    if shard.rank != 0:
+        diag = {"resid": resid, "ortho": ortho}
+        if cached:
+            diag["loaded"] = bool(loaded)
+            if loaded:
+                diag["load_s"] = time.perf_counter() - t0
+    return ef, diag
+
+
+def _build_eigen(fac: GramFactor) -> tuple[EigenFactor, dict]:
+    """build_eigen on this process."""
     wd = fac.K.dtype
     K64 = fac.K.to(torch.float64)
     K64 = 0.5 * (K64 + K64.T)
@@ -94,11 +140,14 @@ def fingerprint(K: torch.Tensor) -> np.ndarray:
     return torch.cat([torch.trace(K)[None], s[:8]]).cpu().numpy().astype(np.float64)
 
 
-def cache_plausible(path: str, n: int) -> bool:
+def cache_plausible(path: str, n: int, shard: Shard | None = None) -> bool:
     """Cheap check that `path` is a readable eigen cache of this package for
     this N: enough for "auto" to pick eigen (the fingerprint is validated in
     build_eigen_cached).  A corrupt or foreign file must not flip the
-    choice, which counts on the eigh being a file load."""
+    choice, which counts on the eigh being a file load.  With a shard, rank
+    0's verdict on every rank."""
+    if shard is not None:
+        return bool(broadcast_from0([shard.rank == 0 and cache_plausible(path, n)], shard)[0])
     if not os.path.exists(path):
         return False
     try:
@@ -137,7 +186,8 @@ def _load_cache(path: str, n: int, seed: int, fp_live: np.ndarray):
         return None, f"unreadable ({type(e).__name__})"
 
 
-def build_eigen_cached(fac: GramFactor, cache_path: str, seed: int = 0) -> tuple[EigenFactor, dict]:
+def build_eigen_cached(fac: GramFactor, cache_path: str, seed: int = 0,
+                       shard: Shard | None = None) -> tuple[EigenFactor, dict]:
     """build_eigen with the factor kept on disk (vampomi_tpu/ops/eigen.py:
     818-932, one process): the eigenbasis is a function of the dataset (K),
     so a rerun, a resumed run or another run mode over the same data loads
@@ -149,7 +199,13 @@ def build_eigen_cached(fac: GramFactor, cache_path: str, seed: int = 0) -> tuple
     truncated, foreign (the JAX package's) or stale cache is a miss, logged
     in one line when the file exists: the factor is rebuilt and the file
     overwritten.  diagnostics["loaded"] says which happened, and
-    "load_s" or "write_s" the wall seconds of the file's part."""
+    "load_s" or "write_s" the wall seconds of the file's part.  With a
+    shard, rank 0 alone reads and writes the file (_from_rank0)."""
+    return _from_rank0(fac, shard, lambda: _build_eigen_cached(fac, cache_path, seed))
+
+
+def _build_eigen_cached(fac: GramFactor, cache_path: str, seed: int) -> tuple[EigenFactor, dict]:
+    """build_eigen_cached on this process."""
     from ..engine.checkpoint import atomic_savez
 
     n = fac.n
@@ -164,7 +220,7 @@ def build_eigen_cached(fac: GramFactor, cache_path: str, seed: int = 0) -> tuple
             return EigenFactor(U=U, lam=lam), {"resid": resid, "ortho": ortho, "loaded": True,
                                                "load_s": time.perf_counter() - t0}
         print(f"eigen cache {cache_path}: {why} — rebuilding", file=sys.stderr, flush=True)
-    ef, diag = build_eigen(fac)
+    ef, diag = _build_eigen(fac)
     t0 = time.perf_counter()
     atomic_savez(cache_path, U=ef.U.cpu().numpy(), lam=ef.lam.cpu().numpy(),
                  resid=diag["resid"], ortho=diag["ortho"], n=n, seed=seed, fp=fp_live,

@@ -31,6 +31,12 @@ vectors.  This is MORE exact than the JAX narrow paths, which contract
 bf16 x bf16 into f32 and so round w (and, off the Pallas kernels, y) to bf16
 (vampomi_tpu/ops/operator.py:186-197): a bf16 torch.matmul would instead
 round every partial sum to bf16, so the port does not use one.
+
+Marker sharding (`sharding.py`): a design with a `shard` holds one rank's
+contiguous slab of markers.  `ax` and `ax_batch` fold the mave correction
+into the slab's partial X^T w and meet the other ranks in ONE all_reduce of
+the (N, K) partial a pass (DESIGN.md §1); `atx` and `atx_batch` stay local,
+y being replicated.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..sharding import Shard, all_reduce_
 from .atx_int8 import PLAIN_CHUNK_BYTES, atx_batch_int8, atx_int8
 from .bf16 import atx_batch_bf16, atx_bf16, ax_batch_bf16
 from .broadcast import ax_batch_int8, ax_batch_packed4
@@ -58,13 +65,18 @@ NARROW = QUANTIZED + (torch.bfloat16,)
 class DesignMatrix(NamedTuple):
     """The raw data and the fused standardization vectors on one device.
 
-    X          : (Mt, N) raw marker data (f64, f32 or bf16) or int8 codes,
-                 or (Mt, N/2) packed nibbles (PACKED4_DTYPE).
-    mave       : (Mt,) per-marker mean, work dtype.
-    msig       : (Mt,) per-marker inverse sd (or 1/sd^alpha), work dtype.
-    mmask      : (Mt,) 1.0 for real markers, work dtype (no padding here).
+    X          : (M, N) raw marker data (f64, f32 or bf16) or int8 codes,
+                 or (M, N/2) packed nibbles (PACKED4_DTYPE); M = m_pad is
+                 this rank's slab of markers (all Mt of them without a
+                 shard).
+    mave       : (M,) per-marker mean, work dtype.
+    msig       : (M,) per-marker inverse sd (or 1/sd^alpha), work dtype.
+    mmask      : (M,) 1.0 for real markers, work dtype (no padding here).
     inv_sqrt_n : () 1/sqrt(N) in the work dtype.
-    n, mt      : sample count and marker count, as Python floats.
+    n, mt      : sample count and GLOBAL marker count, as Python floats:
+                 normalise by mt, allocate M-vectors of m_pad.
+    shard      : the rank's slab [lo, hi) and process group
+                 (sharding.Shard), or None for one process.
     """
 
     X: torch.Tensor
@@ -74,6 +86,7 @@ class DesignMatrix(NamedTuple):
     inv_sqrt_n: torch.Tensor
     n: float
     mt: float
+    shard: Shard | None = None
 
     @property
     def m_pad(self) -> int:
@@ -127,9 +140,8 @@ def ax(dm: DesignMatrix, x: torch.Tensor) -> torch.Tensor:
     if dm.X.dtype in NARROW:
         return ax_batch(dm, x[:, None])[:, 0]
     w = dm.msig * x.to(dm.wd)
-    z = _xt_w(dm, w)
-    corr = torch.dot(dm.mave, w)
-    return (z - corr) * dm.inv_sqrt_n
+    z = _xt_w(dm, w) - torch.dot(dm.mave, w)
+    return all_reduce_(z, dm.shard) * dm.inv_sqrt_n
 
 
 def atx(dm: DesignMatrix, y: torch.Tensor) -> torch.Tensor:
@@ -153,11 +165,11 @@ def atx(dm: DesignMatrix, y: torch.Tensor) -> torch.Tensor:
 
 def ax_batch(dm: DesignMatrix, xs: torch.Tensor) -> torch.Tensor:
     """A @ xs for xs (M, K) → (N, K): the K right-hand sides share one pass
-    over X (the two-column pass of every eigen iteration, and CG)."""
+    over X (the two-column pass of every eigen iteration, and CG); with a
+    shard, one all_reduce of the slab's corrected (N, K) partial."""
     w = dm.msig[:, None] * xs.to(dm.wd)
-    z = _xt_w(dm, w)
-    corr = dm.mave @ w  # (K,)
-    return (z - corr[None, :]) * dm.inv_sqrt_n
+    z = _xt_w(dm, w) - (dm.mave @ w)[None, :]
+    return all_reduce_(z, dm.shard) * dm.inv_sqrt_n
 
 
 def atx_batch(dm: DesignMatrix, ys: torch.Tensor) -> torch.Tensor:
@@ -279,9 +291,10 @@ def dequantized_stats(
 # ---------------------------------------------------------------------------
 
 
-def _assemble(X: torch.Tensor, mave, msig, n: int, device) -> DesignMatrix:
+def _assemble(X: torch.Tensor, mave, msig, n: int, device,
+              shard: Shard | None = None) -> DesignMatrix:
     vd = torch.float32 if X.dtype in NARROW else X.dtype
-    mt = X.shape[0]
+    m = X.shape[0]
 
     def vec(a):
         return torch.as_tensor(np.asarray(a, dtype=np.float64)).to(
@@ -291,11 +304,12 @@ def _assemble(X: torch.Tensor, mave, msig, n: int, device) -> DesignMatrix:
         X=X,
         mave=vec(mave),
         msig=vec(msig),
-        mmask=torch.ones(mt, dtype=vd, device=device),
+        mmask=torch.ones(m, dtype=vd, device=device),
         inv_sqrt_n=torch.tensor(1.0 / np.sqrt(float(n)), dtype=torch.float64,
                                 device=device).to(vd),
         n=float(n),
-        mt=float(mt),
+        mt=float(m if shard is None else shard.mt),
+        shard=shard,
     )
 
 
@@ -305,8 +319,12 @@ def build_design(
     device: str | torch.device = "cpu",
     alpha_scale: float = 1.0,
     quant_out: dict | None = None,
+    shard: Shard | None = None,
 ) -> DesignMatrix:
-    """A DesignMatrix on `device` from raw (Mt, N) marker-major host data.
+    """A DesignMatrix on `device` from raw (Mt, N) marker-major host data,
+    or with a `shard` from the rank's (hi - lo, N) rows of it: every
+    statistic and quantizer below is per marker, so a slab's rows are the
+    global design's rows.
 
     f64 / f32: X is stored as is; mave/msig are the f64 host statistics.
     bf16: the raw values rounded to bf16 (f64 → f32 → bf16, as numpy's
@@ -320,7 +338,7 @@ def build_design(
     into mave/msig, exactly as vampomi_tpu/ops/operator.py:489-574 does:
     msig∘(s·Xq + z - mave) == (msig·s)∘(Xq - (mave - z)/s).
     `quant_out`, if given, receives {"scale": s, "zero": z} (f64, length
-    Mt) for a quantized design.  Single device, no padding."""
+    Mt, or the slab's hi - lo) for a quantized design.  No padding."""
     X_raw = np.asarray(X_raw)
     n = X_raw.shape[1]
     device = torch.device(device)
@@ -348,16 +366,18 @@ def build_design(
         raise NotImplementedError(
             f"compute dtype {compute_dtype} is not a design dtype (float64, float32, "
             "bfloat16, int8, or PACKED4_DTYPE for int4)")
-    return _assemble(X.contiguous(), mave, msig, n, device)
+    return _assemble(X.contiguous(), mave, msig, n, device, shard)
 
 
-def _device_design(X: torch.Tensor, n: int, rows_f64, alpha_scale: float) -> DesignMatrix:
+def _device_design(X: torch.Tensor, n: int, rows_f64, alpha_scale: float,
+                   shard: Shard | None = None) -> DesignMatrix:
     """A DesignMatrix over X on its device whose mave/msig are computed on
     that device in f64, one chunk of marker rows at a time: rows_f64(lo, hi)
     gives rows [lo, hi) of the data as (hi - lo, n) f64 values (for
     quantized X its codes, taken as the data: scale 1, zero 0) — what
     _host_stats and dequantized_stats compute on the host — so a design
-    too large to stage through host memory is built where it lives."""
+    too large to stage through host memory is built where it lives.  With
+    a `shard`, X holds the rank's slab."""
     m = X.shape[0]
     mean = torch.empty(m, dtype=torch.float64, device=X.device)
     sumsq = torch.empty(m, dtype=torch.float64, device=X.device)
@@ -380,19 +400,20 @@ def _device_design(X: torch.Tensor, n: int, rows_f64, alpha_scale: float) -> Des
         inv_sqrt_n=torch.tensor(1.0 / np.sqrt(float(n)), dtype=torch.float64,
                                 device=X.device).to(torch.float32),
         n=float(n),
-        mt=float(m),
+        mt=float(m if shard is None else shard.mt),
+        shard=shard,
     )
 
 
-def design_from_raw_rows(m: int, n: int, rows_of, device,
-                         alpha_scale: float = 1.0) -> DesignMatrix:
+def design_from_raw_rows(m: int, n: int, rows_of, device, alpha_scale: float = 1.0,
+                         shard: Shard | None = None) -> DesignMatrix:
     """A bf16 DesignMatrix of m marker rows built where it lives:
     rows_of(lo, hi) gives the raw values of rows [lo, hi) as an (hi - lo, n)
     tensor on `device`.  Each chunk's f64 statistics are those of its raw
     values, as build_design takes them on the host, and the chunk is stored
     as bf16 (through f32, as build_design rounds), so a design too large for
     host memory (20 GiB of bf16 at the north-star shape) is built on the
-    card."""
+    card.  With a `shard`, the m rows are the rank's slab."""
     X = torch.empty((m, n), dtype=torch.bfloat16, device=device)
 
     def rows_f64(lo, hi):
@@ -400,23 +421,26 @@ def design_from_raw_rows(m: int, n: int, rows_of, device,
         X[lo:hi] = raw.to(torch.float32).to(torch.bfloat16)
         return raw.to(torch.float64)
 
-    return _device_design(X, n, rows_f64, alpha_scale)
+    return _device_design(X, n, rows_f64, alpha_scale, shard)
 
 
-def design_from_codes(Xq: torch.Tensor, alpha_scale: float = 1.0) -> DesignMatrix:
+def design_from_codes(Xq: torch.Tensor, alpha_scale: float = 1.0,
+                      shard: Shard | None = None) -> DesignMatrix:
     """A DesignMatrix over (M, N) int8 codes that already live on their
-    device (see _device_design)."""
+    device (see _device_design); with a `shard`, the rank's slab of them."""
     if Xq.dtype != torch.int8 or Xq.dim() != 2 or not Xq.is_contiguous():
         raise ValueError("design_from_codes: need a contiguous (M, N) int8 tensor")
     return _device_design(Xq, Xq.shape[1], lambda lo, hi: Xq[lo:hi].to(torch.float64),
-                          alpha_scale)
+                          alpha_scale, shard)
 
 
-def design_from_packed(Xp: torch.Tensor, alpha_scale: float = 1.0) -> DesignMatrix:
+def design_from_packed(Xp: torch.Tensor, alpha_scale: float = 1.0,
+                       shard: Shard | None = None) -> DesignMatrix:
     """A DesignMatrix over (M, N/2) packed-int4 bytes that already live on
     their device, N = 2·(N/2) samples (see _device_design): the twin of
     design_from_codes, each chunk of rows unpacked to its N codes."""
     if Xp.dtype != PACKED4_DTYPE or Xp.dim() != 2 or not Xp.is_contiguous():
         raise ValueError("design_from_packed: need a contiguous (M, N/2) uint8 tensor")
     return _device_design(Xp, 2 * Xp.shape[1],
-                          lambda lo, hi: unpack_rows(Xp[lo:hi], torch.float64), alpha_scale)
+                          lambda lo, hi: unpack_rows(Xp[lo:hi], torch.float64), alpha_scale,
+                          shard)

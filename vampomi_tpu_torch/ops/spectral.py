@@ -39,6 +39,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..sharding import all_reduce_many
 from .operator import PACKED4_DTYPE, DesignMatrix, atx, ax, f64
 from .packed4 import unpack_rows
 
@@ -59,7 +60,9 @@ def gram(dm: DesignMatrix, block: int = 16384) -> torch.Tensor:
     (int8 or packed codes, bf16 values) is upcast to f32 one block of rows
     at a time and multiplied in full f32; the JAX package rounds w·x to
     bf16 there (vampomi_tpu/ops/spectral.py:111-133), so its K differs by
-    that rounding."""
+    that rounding.  Sharded over markers, each rank sums its slab's G, t
+    and s2 and one all_reduce of the three makes K, the same bits on every
+    rank (vampomi_tpu/ops/spectral.py:175-193)."""
     acc = dm.wd
     X = dm.X
     m, n = dm.m_pad, int(dm.n)  # packed X has N/2 byte columns
@@ -74,6 +77,7 @@ def gram(dm: DesignMatrix, block: int = 16384) -> torch.Tensor:
         G += (w2[lo:hi, None] * Xb).T @ Xb
         t += u[lo:hi] @ Xb
     s2 = (u * dm.mave.to(acc)).sum()
+    G, t, s2 = all_reduce_many([G, t, s2], dm.shard)
     inv_n = dm.inv_sqrt_n.to(acc) ** 2
     K = (G - t[:, None] - t[None, :] + s2) * inv_n
     return 0.5 * (K + K.T)  # exact symmetry

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.operator import f64
+from ..sharding import Shard, all_reduce_many
 
 _SIGMA_TINY = 1e-10  # reference: src/vamp.cpp:446 shortcut when 1/gam1 ~ 0
 
@@ -116,6 +117,7 @@ def em_update(
     em_err_thr,
     learn_vars,
     debug: bool = False,
+    shard: Shard | None = None,
 ) -> MixturePrior:
     """One call of the reference's `updatePrior` EM loop
     (src/vamp.cpp:531-643, minus the merge — see `merge_components_device`).
@@ -123,7 +125,9 @@ def em_update(
     A Python loop stands in for JAX's lax.while_loop.  With the default
     em_max_iter = 1 the loop condition never reads the device's convergence
     flag, so the call does not synchronise.  The (M, L) responsibilities are
-    in r1's dtype; the O(L) hyperparameter arithmetic stays f64.
+    in r1's dtype; the O(L) hyperparameter arithmetic stays f64.  With a
+    `shard` (r1 and mmask the rank's slab, `mt` global), the three sums
+    over markers of an EM step meet in one all_reduce.
     """
     wd = r1.dtype
     dev = r1.device
@@ -174,16 +178,15 @@ def em_update(
         pin = 1.0 / (1.0 + spike_term / sum_safe)
         pin = pin * mmask_c
 
-        lam_total = pin.sum().to(torch.float64)
-        lam_new = lam_total / mt
-
         v_safe = torch.where(v_col == 0.0, torch.ones_like(v_col), v_col)
         gmean = gam1_c * r1[:, None] / (1.0 / v_safe + gam1_c)
         v_post64 = 1.0 / (1.0 / torch.where(vars64 == 0.0, 1.0, vars64) + gam1)
         gammas = beta * (gmean * gmean + v_post64.to(wd)[None, :])
 
-        res = (beta * pin[:, None]).sum(dim=0).to(torch.float64)
-        res_gammas = (gammas * pin[:, None]).sum(dim=0).to(torch.float64)
+        lam_total, res, res_gammas = (x.to(torch.float64) for x in all_reduce_many(
+            [pin.sum(), (beta * pin[:, None]).sum(dim=0), (gammas * pin[:, None]).sum(dim=0)],
+            shard))
+        lam_new = lam_total / mt
 
         res_safe = torch.where(res == 0.0, 1.0, res)
         new_vars = torch.where(slab & (res != 0.0), res_gammas / res_safe, vars64)

@@ -1,4 +1,4 @@
-# Copied from vampomi_tpu/utils/telemetry.py, without the jax rank check: the port is single-process.
+# Copied from vampomi_tpu/utils/telemetry.py, its rank check on torch.distributed's rank (sharding.is_writer).
 """Per-iteration tracing: phase wall-clock + matvec-throughput counters.
 
 The reference instruments each phase with MPI_Wtime prints and a
@@ -20,6 +20,8 @@ import json
 import os
 import time
 from dataclasses import asdict, dataclass, field
+
+from ..sharding import is_writer
 
 
 @dataclass
@@ -56,7 +58,7 @@ def estimate_passes(cg_iters: int, model: str = "linear", solver: str = "cg") ->
 class Tracer:
     def __init__(self, path: str | None = None, model: str = "linear",
                  solver: str = "cg"):
-        self.path = path
+        self.path = path if is_writer() else None  # rank 0 writes the trace
         self.model = model
         self.solver = solver
         self.records: list[IterationTelemetry] = []
