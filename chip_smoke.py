@@ -37,9 +37,10 @@ Phases (each prints its own lines; any failure ends the run non-zero):
   3. parity   — infere_linear and infere_bin_class (probit) on the card
                 against the same port on the CPU at M = 16,384 x N = 2,048
                 (data_sim; 0/1 labels for probit), int8 and int4: eigen and
-                spectral for 4 iterations, cg for 3, the same p1 and probes;
-                then C = 2 covariates, once for each model (int8); then
-                linear on the bf16 design.
+                spectral for 3 iterations, cg for 2 (the depth where card
+                and CPU first part), the same p1 and probes; then C = 2
+                covariates, once for each model (int8); then linear on the
+                bf16 design.
   4. cli      — the CLI through files (N = 2,000 x M = 8,000), int8 and
                 int4, with eigen, spectral and cg (every output file must
                 exist, be finite, and the x1 correlation must rise); then
@@ -120,27 +121,48 @@ Phases (each prints its own lines; any failure ends the run non-zero):
                 script (--ranks-worker) and of the CLI: (a) the int8 north
                 star, its design made on the card chunk by chunk (65,536
                 rows a seed, so a rank makes only its own rows), the planted
-                y, beta and prior made once and passed through a file; 4
-                eigen iterations with --eigen-cache (rank 0 writes it), 4 of
-                auto with it warm (every rank on the loaded factor), 2
-                spectral, 2 CG (50 steps at most), as one process without a
-                group, and as two gloo ranks sharing the card (524,288
-                markers, 5 GiB of X each); eigen and CG as one NCCL rank
-                (world size 1), whose CSVs and dumps must be the group-less
-                run's byte for byte; the two ranks' gamw and eigenvalue sums
-                bitwise equal, their dumps within rtol 1e-4 and atol 2e-6
-                (CG 1e-3) of one process, every rank's launches and
-                collectives a run exact; one (N, 2) all_reduce timed under
-                gloo and NCCL, the wall an iteration and the peak memory a
-                rank.  (b) the CLI under python -m torch.distributed.run
-                with 3 ranks at N = 2,000 x Mt = 8,002 (ragged slabs), int8
-                and int4 with eigen and CG, every dump full length and
-                within rtol of the one-process CLI; a 3-rank checkpoint at
-                iteration 4 resumed to 8 by 3 ranks (CSVs and dumps byte-
-                identical to the straight run) and by one process (within
-                rtol); --model bin_class over 3 ranks must stop naming
-                ROADMAP.md.  Prints the {"ranks": {...}} line.
+                y, beta, probit labels 1[sqrt(N) A beta + N(0, 1) > 0] and
+                prior made once and passed through a file; 4 eigen
+                iterations with --eigen-cache (rank 0 writes it), 4 of auto
+                with it warm (every rank on the loaded factor), 2 spectral,
+                2 CG (50 steps at most); probit 4 eigen iterations on the
+                warm cache and 2 CG; the run modes on the one-process eigen
+                run's dumps of iteration 4 (SE, LOO, loo_std, test over its
+                4 estimates in one pass, predict).  All of it as one process
+                without a group, which then joins a process group of its
+                own as one NCCL rank (world size 1) and runs eigen, CG,
+                probit and the modes again on the same design: every CSV,
+                dump and mode file byte for byte the group-less run's; and
+                as two gloo ranks sharing the card (524,288 markers, 5 GiB
+                of X each): gamw, gam1, tau1 and the eigenvalue sums bitwise
+                equal across the ranks, the dumps within rtol 1e-4 and atol
+                2e-6 (CG 1e-3) of one process, probit's confusion counts
+                within 3, the SE p-values byte-identical, LOO and loo_std
+                -log10 p, the test CSV and .yhat within rtol 1e-4; every
+                rank's launches and collectives exact per iteration and per
+                mode; one (N, 2) all_reduce timed under gloo and NCCL, the
+                wall an iteration (linear and probit), each mode's seconds
+                and the peak memory a rank.  (b) the CLI under python -m
+                torch.distributed.run with 3 ranks at N = 2,000 x
+                Mt = 8,002 (ragged slabs), each command once: linear int8
+                and int4 with eigen and CG, --model bin_class int8 with
+                eigen and CG and int4 with eigen, every dump full length
+                and within rtol of the one-process CLI (probit counts within
+                3); each model's 3-rank checkpoint at iteration 4 resumed to
+                8 by 3 ranks (CSVs and dumps byte-identical to the straight
+                run) and by one process (within rtol); test,
+                association_test (se, loo, loo_std) and predict on the
+                one-process linear eigen run's dumps and test and predict
+                with --model bin_class on the probit one's (these seven in
+                one launch, each through the CLI's parse_config and run-mode
+                dispatch in one process group: a launch costs more than the
+                commands), against the same commands in one process (the
+                bars of (a)); only --profile-dir is refused, naming
+                ROADMAP.md.  Prints the walls of its two waves of launches
+                and the {"ranks": {...}} line.
 
+Before the ranks line, a line "[timing] {...}" gives each phase's wall
+seconds (a phase run in several parts, such as 7, summed) and the total.
 The line before the last is the kernel record {"kernels": [...]}: seventeen
 kernels standing for the twelve TPU kernels of the repo, the int8 einsum
 of CG's A^T pass, the LOO pass's row reductions, the Gibbs sampler's
@@ -243,6 +265,9 @@ SEED = 20261016
 # Hutchinson alpha2 and gamw carry (1e-3).
 PARITY_RTOL = {"eigen": 1e-4, "spectral": 1e-4, "cg": 1e-3}
 PARITY_ATOL = 1e-5  # metrics that start at 0 at the cold start
+# the parity phase's depth: the trajectories still move at iteration 3
+# (eigen, spectral) and 2 (CG), where the card and the CPU first part
+PARITY_ITERS = {"eigen": 3, "spectral": 3, "cg": 2}
 PRIOR3 = dict(probs=[0.9, 0.07, 0.03], vars=[0.0, 1e-3, 1e-2], h2=0.8)
 PROBIT = dict(probs=[0.9, 0.07, 0.03], vars=[0.0, 1e-3, 1e-2], rho=0.3, gam1=1e-2)
 # probit labels are thresholds of z: a sample whose z lies within the f32
@@ -717,7 +742,7 @@ def phase_parity(dev: str, dtype: str, log_dir: str, out_dir: str, model: str = 
     same rtol; the eight confusion counts to PARITY_LABELS samples and the
     two accuracies to PARITY_LABELS / N."""
     t0 = time.perf_counter()
-    iters = iters or {"eigen": 4, "spectral": 4, "cg": 3}
+    iters = iters or PARITY_ITERS
     runs = run_pair([dev, "cpu"], dtype, m, n, log_dir, out_dir, iters, model, c)
     if model == "bin_class":
         counts = [8, 9, 10, 11, 14, 15, 16, 17]  # after the 8 params
@@ -1310,15 +1335,9 @@ def phase_probit_main(main: MainPath, log_dir: str, out_dir: str,
                   f"probit {solver}: the solver that ran was {res.solver}")
             check(mh.shape == (k, 12) and np.all(np.isfinite(mh))
                   and np.all(np.isfinite(res.x1_hat_scaled)), f"probit {solver}: not finite")
-            if res.solver == "cg":
-                if outputs:
-                    steps = _trace_steps(os.path.join(out_dir, f"probit_{solver}_trace.jsonl"))
-                # A^T p2 each iteration; ax of x1 and x2 and the initial
-                # residual's pass each iteration, then one pass each way a step
-                want = {"atx_int8": k, "ax_batch_int8": sum(steps) + 3 * k,
-                        "atx_batch_int8": sum(steps) + k}
-            else:
-                want = {"atx_int8": 2 * k, "ax_batch_int8": k}
+            if res.solver == "cg" and outputs:
+                steps = _trace_steps(os.path.join(out_dir, f"probit_{solver}_trace.jsonl"))
+            want = probit_launches(res.solver, k, steps if res.solver == "cg" else [])
             check(count == want, f"probit {solver}: launches {count}, want {want}")
     return launches()
 
@@ -1804,6 +1823,19 @@ RANK_CHUNK = 65_536  # rows of the north-star design made from one seed
 RANK_RUNS = (("eigen", "eigen", 4, "eigen"), ("auto_warm", "auto", 4, "eigen"),
              ("spectral", "spectral", 2, "spectral"), ("cg", "cg", 2, "cg"))
 NCCL_RUNS = (("eigen", "eigen", 4, "eigen"), ("cg", "cg", 2, "cg"))
+# probit on the planted labels: eigen on the cache the linear eigen run
+# wrote (warm), CG
+PROBIT_RANK_RUNS = (("eigen", "eigen", 4, "eigen"), ("cg", "cg", 2, "cg"))
+# the run modes on the one-process linear eigen run's dumps of iteration
+# RANK_MODES_K (test over its iterations 1..RANK_MODES_K: one batched pass)
+RANK_MODES = ("se", "loo", "loo_std", "test", "predict")
+RANK_MODES_K = 4
+# each mode's launches a rank, and its collectives (the one all_reduce of
+# its pass over X; SE reads no X)
+MODE_LAUNCHES = {"se": {}, "loo": {"row_moments_int8": 1, "atx_int8": 1, "ax_batch_int8": 1},
+                 "loo_std": {"row_moments_int8": 1, "atx_int8": 1, "ax_batch_int8": 1},
+                 "test": {"ax_batch_int8": 1}, "predict": {"ax_batch_int8": 1}}
+MODE_COLLECTIVES = {"se": 0, "loo": 1, "loo_std": 1, "test": 1, "predict": 1}
 # across rank counts, f32 sums over markers in another order: the JAX
 # package's bar for an f32 work dtype across process counts
 # (tests/test_multihost.py:186-190), and for CG the card-against-CPU one
@@ -1818,7 +1850,7 @@ def within(a: np.ndarray, b: np.ndarray, rtol: float, atol: float | None = None)
     accuracy: at N = 2,000 the f32 sums in another order move r1's entries
     by up to 3e-6 of its 0.25, on the CPU)."""
     atol = rtol * float(np.abs(b).max()) if atol is None else atol
-    return bool(np.all(np.abs(a - b) <= rtol * np.abs(b) + atol))
+    return bool(a.shape == b.shape and np.all(np.abs(a - b) <= rtol * np.abs(b) + atol))
 
 
 def rank_codes(lo: int, hi: int, dev) -> torch.Tensor:
@@ -1836,20 +1868,153 @@ def rank_codes(lo: int, hi: int, dev) -> torch.Tensor:
 
 
 def rank_iteration_collectives(solver: str, k: int, steps: list[int]) -> list[int]:
-    """The collectives of each iteration of a sharded run with the EM update
-    off: an exact solver's alpha1, its ax_batch pass and the error measures
-    (3); CG's alpha1, ax of x1, x2 and the probe (3), the probe's alpha2 and
-    the error measures (2), the solve's start (its residual's pass and one
-    batch) and 3 a CG step (⟨d, p⟩, the step's batch, the pass)."""
+    """The collectives of each iteration of a sharded linear run with the EM
+    update off: an exact solver's alpha1, its ax_batch pass and the error
+    measures (3); CG's alpha1, ax of x1, x2 and the probe (3), the probe's
+    alpha2 and the error measures (2), the solve's start (its residual's
+    pass and one batch) and 3 a CG step (⟨d, p⟩, the step's batch, the
+    pass)."""
     return [3] * k if solver != "cg" else [8 + 3 * s for s in steps]
+
+
+def probit_iteration_collectives(solver: str, k: int, steps: list[int]) -> list[int]:
+    """The same for a probit run, whose EM update runs from iteration 2:
+    an exact solver's alpha1, its ax_batch pass and the late sums (3); CG's
+    alpha1, A x1, the solve's start (2), alpha2, A x2 and the late sums
+    (7) and 3 a CG step; one more for the EM update."""
+    base = [3] * k if solver != "cg" else [7 + 3 * s for s in steps]
+    return [c + (i > 0) for i, c in enumerate(base)]
+
+
+def probit_launches(solver: str, k: int, steps: list[int]) -> dict:
+    """A probit run's launches on the int8 design: exact, atx_int8 2 and
+    ax_batch_int8 1 an iteration; CG, A^T p2 an iteration, ax of x1 and x2
+    and the initial residual's pass, then one pass each way a CG step."""
+    if solver != "cg":
+        return {"atx_int8": 2 * k, "ax_batch_int8": k}
+    return {"atx_int8": k, "ax_batch_int8": sum(steps) + 3 * k, "atx_batch_int8": sum(steps) + k}
+
+
+def _counted(shard, fn):
+    """fn()'s result, its kernel launches (counted from 0) and the
+    collectives it ran on `shard`, and its seconds."""
+    reset_launches()
+    c0 = shard.collectives() if shard is not None else 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return (out, {n: c for n, c in launches().items() if c},
+            (shard.collectives() - c0) if shard is not None else None, secs)
+
+
+def rank_tag_runs(spec: dict, tag: str, runs, dm, problem: dict) -> dict:
+    """One group's (or one process's) runs of phase 10 (a) on its design dm:
+    the linear `runs`, probit on the planted labels (PROBIT_RANK_RUNS), and
+    the run modes on the one-process linear eigen run's dumps; each with its
+    launches counted from 0, its collectives and its seconds."""
+    from vampomi_tpu_torch import sharding
+
+    shard = dm.shard
+    dev = dm.device
+    rank = 0 if shard is None else shard.rank
+    out_dir = spec["out_dir"]
+    cache = os.path.join(out_dir, f"{tag}_eigen.npz")
+    y, beta = problem["y"], problem["beta"]
+    common = dict(stop_criteria_thr=0.0, learn_vars=0, CG_max_iter=50, device=str(dev),
+                  seed=SEED, eigen_cache=cache)
+    lin = []
+    for label, solver, k, _ in runs:
+        name = f"{tag}_{label}"
+        cfg = RunConfig(out_dir=out_dir, out_name=name, iterations=k, lmmse_solver=solver,
+                        learn_prior_delay=k, **problem["prior"], **common)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with engine_log(spec["log_dir"], f"{name}_rank{rank}"):
+            res, count, _, _ = _counted(shard, lambda: infere_linear(dm, y, cfg, true_signal=beta))
+        lin.append(dict(label=label, solver=res.solver, gamw=float(res.gamw).hex(),
+                        lam_sum=(float(res.setup["eigen_lam_sum"]).hex()
+                                 if "eigen_lam_sum" in res.setup else None),
+                        loaded="eigen_cache_load" in res.setup, seconds=res.iter_seconds,
+                        collectives=res.iter_collectives, launches=count,
+                        peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                        x1_corr=[float(r[1]) for r in res.metrics_history]))
+    prob = []
+    for label, solver, k, _ in PROBIT_RANK_RUNS:
+        name = f"{tag}_probit_{label}"
+        cfg = RunConfig(out_dir=out_dir, out_name=name, model="bin_class", iterations=k,
+                        lmmse_solver=solver, rho=0.3, gam1=1e-2, **problem["pprior"], **common)
+        with engine_log(spec["log_dir"], f"{name}_rank{rank}"):
+            res, count, _, _ = _counted(shard, lambda: infere_bin_class(
+                dm, problem["y01"], cfg, true_signal=beta))
+        prob.append(dict(label=label, solver=res.solver, gam1=float(res.gam1).hex(),
+                         tau1=float(res.tau1).hex(),
+                         lam_sum=(float(res.setup["eigen_lam_sum"]).hex()
+                                  if "eigen_lam_sum" in res.setup else None),
+                         loaded="eigen_cache_load" in res.setup, seconds=res.iter_seconds,
+                         collectives=res.iter_collectives, launches=count,
+                         metrics=[[float(v) for v in r] for r in res.metrics_history]))
+    # the run modes, every group on the one-process eigen run's files
+    src = os.path.join(out_dir, "r1_eigen")
+    k = RANK_MODES_K
+    pred = os.path.join(out_dir, f"{tag}_pred_it_{k}.bin")  # .yhat lands beside it
+    if rank == 0:
+        shutil.copyfile(f"{src}_it_{k}.bin", pred)
+    sharding.barrier(shard)
+    ds = Dataset(dm=dm, phen=Phenotype(y=y, intercept=0.0, scale=1.0), covariates=None,
+                 qscale=np.ones(NS_M))  # codes: scale 1
+    cfg = RunConfig(out_dir=out_dir, out_name=f"{tag}_modes", N=NS_N, Mt=NS_M, N_test=NS_N,
+                    gam1=read_positional_csv(f"{src}_params.csv")[k - 1][2],
+                    r1_file=f"{src}_r1_it_{k}.bin", estimate_file=f"{src}_it_{k}.bin",
+                    device=str(dev))
+    calls = {m: (lambda m=m: association.run_association_test(
+        ds, dataclasses.replace(cfg, pval_method=m))) for m in ("se", "loo", "loo_std")}
+    calls["test"] = lambda: test_mode.run_test_linear(ds, dataclasses.replace(
+        cfg, estimate_file=f"{src}_it_1.bin", test_iter_range=[1, k]))
+    calls["predict"] = lambda: predict.run_predict(ds, dataclasses.replace(
+        cfg, estimate_file=pred))
+    modes = {}
+    for mode in RANK_MODES:
+        _, count, coll, secs = _counted(shard, calls[mode])
+        modes[mode] = dict(launches=count, collectives=coll, seconds=secs)
+    return dict(rank=rank, slab=[0, NS_M] if shard is None else [shard.lo, shard.hi],
+                runs=lin, probit=prob, modes=modes, all_reduce_ms=None,
+                backend=None if shard is None else shard.backend)
+
+
+def _all_reduce_ms(shard, dev) -> float:
+    """One (N, 2) f32 all_reduce under the shard's backend: the median of 20
+    after 3 warm-ups, the host clock around it and a synchronise."""
+    import torch.distributed as dist
+
+    t = torch.ones((NS_N, 2), device=dev)
+    times = []
+    for i in range(23):
+        torch.cuda.synchronize()
+        ta = time.perf_counter()
+        dist.all_reduce(t, group=shard.group)
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append(1e3 * (time.perf_counter() - ta))
+    return float(np.median(times))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def ranks_worker(spec_path: str) -> int:
     """One process of phase 10 (a): under VAMPOMI_DISTRIBUTED=1 a rank of
     torch.distributed.run's group on its slab, else one process without a
-    group.  Builds its rows of the design, runs spec["runs"] through
-    infere_linear with the launches counted from 0 before each run, times one
-    (N, 2) all_reduce, and writes its results to <out_dir>/<tag>_rank<r>.json."""
+    group, which then joins a process group of its own as its one NCCL rank
+    (world size 1) and runs spec["nccl"] on the same design again.  Builds
+    its rows of the design, runs rank_tag_runs and writes each group's
+    results to <out_dir>/<tag>_rank<r>.json."""
+    import torch.distributed as dist
+
     from vampomi_tpu_torch import sharding
 
     with open(spec_path) as f:
@@ -1857,52 +2022,32 @@ def ranks_worker(spec_path: str) -> int:
     distributed = os.environ.get("VAMPOMI_DISTRIBUTED") == "1"
     dev = resolve_device(sharding.init_from_env("cuda") if distributed else "cuda")
     shard = sharding.shard_for(NS_M, dev)
-    rank, lo, hi = (0, 0, NS_M) if shard is None else (shard.rank, shard.lo, shard.hi)
+    lo, hi = (0, NS_M) if shard is None else (shard.lo, shard.hi)
     t0 = time.perf_counter()
     dm = design_from_codes(rank_codes(lo, hi, dev), shard=shard)
     torch.cuda.synchronize()
     built = time.perf_counter() - t0
     with np.load(spec["problem"]) as z:
-        y, beta = z["y"], z["beta"]
-        prior = dict(probs=z["probs"].tolist(), vars=z["vars"].tolist(), h2=float(z["h2"]))
-    runs = []
-    for label, solver, k, _ in spec["runs"]:
-        name = f"{spec['tag']}_{label}"
-        cfg = RunConfig(out_dir=spec["out_dir"], out_name=name, iterations=k,
-                        lmmse_solver=solver, stop_criteria_thr=0.0, learn_vars=0,
-                        learn_prior_delay=k, CG_max_iter=50, device=str(dev), seed=SEED,
-                        eigen_cache=spec["cache"], **prior)
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset_launches()
-        with engine_log(spec["log_dir"], f"{name}_rank{rank}"):
-            res = infere_linear(dm, y, cfg, true_signal=beta)
-        torch.cuda.synchronize()
-        runs.append(dict(label=label, solver=res.solver, gamw=float(res.gamw).hex(),
-                         lam_sum=(float(res.setup["eigen_lam_sum"]).hex()
-                                  if "eigen_lam_sum" in res.setup else None),
-                         loaded="eigen_cache_load" in res.setup, seconds=res.iter_seconds,
-                         collectives=res.iter_collectives,
-                         launches={n: c for n, c in launches().items() if c},
-                         peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
-                         x1_corr=[float(r[1]) for r in res.metrics_history]))
-    out = dict(rank=rank, slab=[lo, hi], built_s=built, runs=runs, all_reduce_ms=None,
-               backend=None if shard is None else shard.backend)
+        problem = dict(y=z["y"], beta=z["beta"], y01=z["y01"],
+                       prior=dict(probs=z["probs"].tolist(), vars=z["vars"].tolist(),
+                                  h2=float(z["h2"])),
+                       pprior=dict(probs=z["probs"].tolist(), vars=z["vars"].tolist()))
+    results = {spec["tag"]: rank_tag_runs(spec, spec["tag"], spec["runs"], dm, problem)}
     if shard is not None:
-        import torch.distributed as dist
-
-        t = torch.ones((NS_N, 2), device=dev)
-        times = []
-        for i in range(23):
-            torch.cuda.synchronize()
-            ta = time.perf_counter()
-            dist.all_reduce(t, group=shard.group)
-            torch.cuda.synchronize()
-            if i >= 3:
-                times.append(1e3 * (time.perf_counter() - ta))
-        out["all_reduce_ms"] = float(np.median(times))
+        results[spec["tag"]]["all_reduce_ms"] = _all_reduce_ms(shard, dev)
+    if spec.get("nccl"):  # the same process as one NCCL rank, on the same design
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+        sharding.init_from_env("cuda")
+        one = sharding.shard_for(NS_M, dev)
+        results["rn"] = rank_tag_runs(spec, "rn", spec["nccl"], dm._replace(shard=one), problem)
+        results["rn"]["all_reduce_ms"] = _all_reduce_ms(one, dev)
+    if dist.is_initialized():
         dist.destroy_process_group()
-    with open(os.path.join(spec["out_dir"], f"{spec['tag']}_rank{rank}.json"), "w") as f:
-        json.dump(out, f)
+    for tag, res in results.items():
+        res["built_s"] = built
+        with open(os.path.join(spec["out_dir"], f"{tag}_rank{res['rank']}.json"), "w") as f:
+            json.dump(res, f)
     return 0
 
 
@@ -1939,31 +2084,37 @@ def wait(p: subprocess.Popen, what: str, log_path: str, ok: bool = True) -> str:
     return text
 
 
-def rank_group(nproc: int, tag: str, runs, out_dir: str, log_dir: str, problem: str) -> list:
-    """Phase 10 (a)'s runs as `nproc` ranks (0: one process, no group); each
-    rank's results."""
+def rank_group(nproc: int, tag: str, runs, out_dir: str, log_dir: str, problem: str,
+               nccl=None) -> dict:
+    """Phase 10 (a)'s runs as `nproc` ranks (0: one process, no group, then
+    as one NCCL rank the runs `nccl`); each group's results by tag, a list
+    of its ranks'."""
     spec = os.path.join(out_dir, f"{tag}.json")
     with open(spec, "w") as f:
-        json.dump(dict(tag=tag, runs=runs, out_dir=out_dir, log_dir=log_dir, problem=problem,
-                       cache=os.path.join(out_dir, f"{tag}_eigen.npz")), f)
+        json.dump(dict(tag=tag, runs=runs, nccl=nccl, out_dir=out_dir, log_dir=log_dir,
+                       problem=problem), f)
     log_path = os.path.join(log_dir, f"{tag}.log")
     t0 = time.perf_counter()
     wait(torchrun(nproc, [os.path.join(ROOT, "chip_smoke.py"), "--ranks-worker", spec],
                   log_path), f"ranks {tag}", log_path)
-    res = []
-    for r in range(max(nproc, 1)):
-        with open(os.path.join(out_dir, f"{tag}_rank{r}.json")) as f:
-            res.append(json.load(f))
-    log(f"[ranks] {tag}: {max(nproc, 1)} process(es), backend {res[0]['backend']}, in "
-        f"{time.perf_counter() - t0:.1f}s (design rows built in "
-        f"{[round(x['built_s'], 2) for x in res]} s)")
-    return res
+    took = time.perf_counter() - t0
+    out = {}
+    for t in [tag] + (["rn"] if nccl else []):
+        out[t] = []
+        for r in range(max(nproc, 1)):
+            with open(os.path.join(out_dir, f"{t}_rank{r}.json")) as f:
+                out[t].append(json.load(f))
+    log(f"[ranks] {' and '.join(out)}: {max(nproc, 1)} process(es), backend "
+        f"{', '.join(str(v[0]['backend']) for v in out.values())}, in {took:.1f}s (design "
+        f"rows built in {[round(x['built_s'], 2) for x in out[tag]]} s)")
+    return out
 
 
 def check_rank_runs(tag: str, res: list, runs, out_dir: str) -> None:
     """Every rank ran the solver it must, holds the bits of rank 0, and
     launched each kernel and ran each collective exactly as often as its
-    runs need (the CG steps from rank 0's trace)."""
+    runs need (the CG steps from rank 0's trace): the linear runs, probit
+    (eigen on the loaded cache) and the run modes."""
     for i, (label, _, k, expect) in enumerate(runs):
         steps = (_trace_steps(os.path.join(out_dir, f"{tag}_{label}_trace.jsonl"))
                  if expect == "cg" else [])
@@ -1983,63 +2134,155 @@ def check_rank_runs(tag: str, res: list, runs, out_dir: str) -> None:
             if expect == "eigen":  # the eigen run writes the cache, auto_warm loads it
                 check(run["loaded"] == (label == "auto_warm"),
                       f"{where}: eigen cache {'loaded' if run['loaded'] else 'built'}")
+    for i, (label, _, k, expect) in enumerate(PROBIT_RANK_RUNS):
+        steps = (_trace_steps(os.path.join(out_dir, f"{tag}_probit_{label}_trace.jsonl"))
+                 if expect == "cg" else [])
+        want = probit_launches(expect, k, steps)
+        for r in res:
+            run = r["probit"][i]
+            where = f"ranks {tag} rank {r['rank']} probit {label}"
+            first = res[0]["probit"][i]
+            check(run["solver"] == expect, f"{where}: ran {run['solver']}, want {expect}")
+            check([run[key] for key in ("gam1", "tau1", "lam_sum")]
+                  == [first[key] for key in ("gam1", "tau1", "lam_sum")],
+                  f"{where}: gam1, tau1 or the eigenvalues' sum differ from rank 0's")
+            check(run["launches"] == want, f"{where}: launches {run['launches']}, want {want}")
+            check(run["loaded"] == (expect == "eigen"), f"{where}: the eigen cache not loaded")
+            if r["backend"] is not None:
+                want_c = probit_iteration_collectives(expect, k, steps)
+                check(run["collectives"] == want_c,
+                      f"{where}: collectives {run['collectives']}, want {want_c}")
+    for r in res:
+        for mode in RANK_MODES:
+            got = r["modes"][mode]
+            check(got["launches"] == MODE_LAUNCHES[mode],
+                  f"ranks {tag} rank {r['rank']} {mode}: launches {got['launches']}, want "
+                  f"{MODE_LAUNCHES[mode]}")
+            if r["backend"] is not None:
+                check(got["collectives"] == MODE_COLLECTIVES[mode],
+                      f"ranks {tag} rank {r['rank']} {mode}: collectives {got['collectives']}, "
+                      f"want {MODE_COLLECTIVES[mode]}")
+
+
+def _rank_files(runs) -> list[str]:
+    """The files of a group's runs, after its "<tag>_", that one NCCL rank
+    must repeat byte for byte: the CSVs and dumps of its linear and probit
+    runs and every mode's output."""
+    names = []
+    for prefix, rs in (("", runs), ("probit_", PROBIT_RANK_RUNS)):
+        for label, _, k, _ in rs:
+            names += [f"{prefix}{label}_{c}.csv" for c in ("metrics", "params", "prior")]
+            names += [f"{prefix}{label}_{kind}it_{i}.bin" for kind in ("", "r1_")
+                      for i in range(1, k + 1)]
+    k = RANK_MODES_K
+    names += [f"modes_it_{k}_pval_{m}.bin" for m in ("se", "loo", "loo_std")]
+    return names + ["modes_test.csv", "pred_.yhat"]
+
+
+def _mode_values(out_dir: str, tag: str, mode: str) -> np.ndarray:
+    k = RANK_MODES_K
+    if mode == "test":
+        return np.asarray(read_positional_csv(os.path.join(out_dir, f"{tag}_modes_test.csv")))
+    if mode == "predict":
+        with open(os.path.join(out_dir, f"{tag}_pred_.yhat")) as f:
+            return np.array([float(v) for v in f.read().split()])
+    return np.fromfile(os.path.join(out_dir, f"{tag}_modes_it_{k}_pval_{mode}.bin"))
 
 
 def phase_ranks_main(dev: str, log_dir: str, out_dir: str) -> dict:
-    """Phase 10 (a): the int8 north-star main path as one process without a
-    group, one NCCL rank (world size 1) and two gloo ranks sharing the card
+    """Phase 10 (a): the int8 north-star main path, probit on planted labels
+    and the run modes as one process without a group, which then runs as
+    one NCCL rank (world size 1), and as two gloo ranks sharing the card
     (524,288 markers and 5 GiB of X each)."""
     t0 = time.perf_counter()
     X = rank_codes(0, NS_M, dev)
     dm = design_from_codes(X)
     y, beta, prior = planted_problem(dm, NS_M // 1024)
+    g = math.sqrt(NS_N) * ax(dm, torch.as_tensor(beta, dtype=torch.float32, device=dev))
+    y01 = (g.double().cpu().numpy() + np.random.default_rng(SEED + 5).normal(size=NS_N) > 0)
     problem = os.path.join(out_dir, "ranks_problem.npz")
-    np.savez(problem, y=y, beta=beta, probs=prior["probs"], vars=prior["vars"], h2=prior["h2"])
-    del dm, X
+    np.savez(problem, y=y, beta=beta, y01=y01.astype(np.float64), probs=prior["probs"],
+             vars=prior["vars"], h2=prior["h2"])
+    del dm, X, g
     torch.cuda.empty_cache()
-    log(f"[ranks] planted problem on the chunked design in {time.perf_counter() - t0:.1f}s")
-    one = rank_group(0, "r1", RANK_RUNS, out_dir, log_dir, problem)
+    log(f"[ranks] planted problem on the chunked design in {time.perf_counter() - t0:.1f}s "
+        f"({int(y01.sum())} cases of {NS_N} for probit)")
+    groups = rank_group(0, "r1", RANK_RUNS, out_dir, log_dir, problem, nccl=NCCL_RUNS)
+    one, nccl = groups["r1"], groups["rn"]
     check_rank_runs("r1", one, RANK_RUNS, out_dir)
-    nccl = rank_group(1, "rn", NCCL_RUNS, out_dir, log_dir, problem)
     check(nccl[0]["backend"] == "nccl", f"one rank ran {nccl[0]['backend']}, not nccl")
     check_rank_runs("rn", nccl, NCCL_RUNS, out_dir)
-    same = 0
-    for label, _, k, _ in NCCL_RUNS:
-        names = [f"{label}_{c}.csv" for c in ("metrics", "params", "prior")]
-        names += [f"{label}_{kind}it_{i}.bin" for kind in ("", "r1_") for i in range(1, k + 1)]
-        for f in names:
-            check(_bytes(os.path.join(out_dir, f"r1_{f}")) == _bytes(os.path.join(out_dir, f"rn_{f}")),
-                  f"ranks: one NCCL rank's {f} is not the run without a group's, byte for byte")
-        same += len(names)
-    log(f"[ranks] one NCCL rank: {same} CSVs and dumps byte-identical to the run without a group")
-    two = rank_group(2, "r2", RANK_RUNS, out_dir, log_dir, problem)
+    names = _rank_files(NCCL_RUNS)
+    for f in names:
+        check(_bytes(os.path.join(out_dir, f"r1_{f}")) == _bytes(os.path.join(out_dir, f"rn_{f}")),
+              f"ranks: one NCCL rank's {f} is not the run without a group's, byte for byte")
+    log(f"[ranks] one NCCL rank: {len(names)} CSVs, dumps and mode files (linear, probit, SE, "
+        f"LOO, loo_std, test, predict) byte-identical to the run without a group")
+    two = rank_group(2, "r2", RANK_RUNS, out_dir, log_dir, problem)["r2"]
     check(two[0]["backend"] == "gloo", f"two ranks on one card ran {two[0]['backend']}, not gloo")
     check_rank_runs("r2", two, RANK_RUNS, out_dir)
     worst = {}
-    for i, (label, _, k, expect) in enumerate(RANK_RUNS):
-        for it in range(1, k + 1):
-            for kind in ("", "r1_"):
-                a = read_bin_slab(os.path.join(out_dir, f"r2_{label}_{kind}it_{it}.bin"), NS_M)
-                b = read_bin_slab(os.path.join(out_dir, f"r1_{label}_{kind}it_{it}.bin"), NS_M)
-                check(within(a, b, RANK_RTOL[expect], RANK_ATOL),
-                      f"ranks: two ranks' {label} {kind}it_{it} past rtol {RANK_RTOL[expect]}")
-                worst[label] = max(worst.get(label, 0.0), float(np.max(np.abs(a - b))))
-    iteration_ms = {}
+    for prefix, rs in (("", RANK_RUNS), ("probit_", PROBIT_RANK_RUNS)):
+        for label, _, k, expect in rs:
+            for it in range(1, k + 1):
+                for kind in ("", "r1_"):
+                    a, b = (read_bin_slab(os.path.join(out_dir, f"{t}_{prefix}{label}_{kind}it_"
+                                                                f"{it}.bin"), NS_M)
+                            for t in ("r2", "r1"))
+                    check(within(a, b, RANK_RTOL[expect], RANK_ATOL),
+                          f"ranks: two ranks' {prefix}{label} {kind}it_{it} past rtol "
+                          f"{RANK_RTOL[expect]}")
+                    key = prefix + label
+                    worst[key] = max(worst.get(key, 0.0), float(np.max(np.abs(a - b))))
+    labels = {}
+    for i, (label, *_) in enumerate(PROBIT_RANK_RUNS):
+        a, b = (np.asarray(g[0]["probit"][i]["metrics"]) for g in (two, one))
+        counts = [0, 1, 2, 3, 6, 7, 8, 9]
+        labels[label] = float(np.abs(a[:, counts] - b[:, counts]).max())
+        check(labels[label] <= PARITY_LABELS,
+              f"ranks: two ranks' probit {label} confusion counts {labels[label]:g} samples off")
+    modes_err = {}
+    for mode in RANK_MODES:
+        a, b = (_mode_values(out_dir, t, mode) for t in ("r2", "r1"))
+        if mode == "se":
+            ok = _bytes(os.path.join(out_dir, f"r2_modes_it_{RANK_MODES_K}_pval_se.bin")) == \
+                _bytes(os.path.join(out_dir, f"r1_modes_it_{RANK_MODES_K}_pval_se.bin"))
+            modes_err[mode] = 0.0 if ok else float(np.max(np.abs(a - b)))
+        else:
+            if mode.startswith("loo"):  # p underflows to 0 for the strongest markers
+                a, b = -np.log10(a + 1e-300), -np.log10(b + 1e-300)
+            ok = within(a, b, RANK_RTOL["eigen"])
+            modes_err[mode] = float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+        check(ok and a.shape[0] == {"test": RANK_MODES_K, "predict": NS_N}.get(mode, NS_M),
+              f"ranks: two ranks' {mode} output not within the bar of one process's")
+    iteration_ms, probit_ms, mode_s = {}, {}, {}
     for tag, res in (("1", one), ("1_nccl", nccl), ("2", two)):
         iteration_ms[tag] = {run["label"]: 1e3 * float(np.median(run["seconds"][1:]))
                              for run in res[0]["runs"]}
+        probit_ms[tag] = {run["label"]: 1e3 * float(np.median(run["seconds"][1:]))
+                          for run in res[0]["probit"]}
+        mode_s[tag] = {m: max(r["modes"][m]["seconds"] for r in res) for m in RANK_MODES}
     peak = {f"{tag}_rank{r['rank']}": max(run["peak_gib"] for run in r["runs"])
             for tag, res in (("1", one), ("2", two)) for r in res}
     out = dict(all_reduce_ms={"gloo_2_ranks": two[0]["all_reduce_ms"],
                               "nccl_1_rank": nccl[0]["all_reduce_ms"]},
-               iteration_ms=iteration_ms, peak_gib=peak, max_abs_diff_2_vs_1=worst,
+               iteration_ms=iteration_ms, probit_iteration_ms=probit_ms, mode_seconds=mode_s,
+               peak_gib=peak, max_abs_diff_2_vs_1=worst, probit_label_diff_2_vs_1=labels,
+               mode_rel_diff_2_vs_1=modes_err,
                launches_per_rank={run["label"]: run["launches"] for run in two[0]["runs"]},
+               probit_launches_per_rank={run["label"]: run["launches"]
+                                         for run in two[0]["probit"]},
                collectives_per_rank={run["label"]: run["collectives"] for run in two[0]["runs"]},
+               probit_collectives_per_rank={run["label"]: run["collectives"]
+                                            for run in two[0]["probit"]},
                x1_corr={run["label"]: run["x1_corr"] for run in two[0]["runs"]})
     log(f"[ranks] two gloo ranks sharing the card: within rtol {RANK_RTOL} atol {RANK_ATOL} of "
-        f"one process (max abs diff {worst}); one (N, 2) all_reduce {two[0]['all_reduce_ms']:.3f} "
-        f"ms under gloo (2 ranks), {nccl[0]['all_reduce_ms']:.3f} ms under NCCL (1 rank); "
-        f"median ms an iteration (its 2..k) {iteration_ms}; peak GiB {peak}; done in "
+        f"one process (max abs diff {worst}; probit counts within {labels} samples; modes' "
+        f"max abs diff over the largest entry {modes_err}, SE byte-identical); one (N, 2) "
+        f"all_reduce "
+        f"{two[0]['all_reduce_ms']:.3f} ms under gloo (2 ranks), {nccl[0]['all_reduce_ms']:.3f} "
+        f"ms under NCCL (1 rank); median ms an iteration (its 2..k) {iteration_ms}, probit "
+        f"{probit_ms}; mode seconds {mode_s}; peak GiB {peak}; done in "
         f"{time.perf_counter() - t0:.1f}s")
     return out
 
@@ -2047,100 +2290,239 @@ def phase_ranks_main(dev: str, log_dir: str, out_dir: str) -> dict:
 def phase_ranks_cli(dev: str, log_dir: str, n: int = 2_000, m: int = 8_002, iters: int = 8,
                     split: int = 4) -> dict:
     """Phase 10 (b): the CLI under torch.distributed.run with 3 ranks on the
-    card (slabs of 2,668, 2,667 and 2,667 markers): int8 and int4, eigen
-    and CG, against the one-process CLI; a 3-rank checkpoint at iteration
-    `split` resumed by 3 ranks (CSVs and dumps byte-identical to the
-    straight 3-rank run) and by one process (within rtol); probit refused."""
+    card (slabs of 2,668, 2,667 and 2,667 markers), each command once,
+    against the one-process CLI: linear int8 and int4 with eigen and CG,
+    --model bin_class int8 with eigen and CG and int4 with eigen; a 3-rank
+    checkpoint at iteration `split` of each model resumed by 3 ranks (CSVs
+    and dumps byte-identical to the straight 3-rank run) and by one process
+    (within rtol); test, association_test (se, loo, loo_std) and predict on
+    the one-process linear eigen run's dumps, test and predict with
+    --model bin_class on the probit one's (one launch of 3 ranks for the
+    seven, cli_ranks_worker); --profile-dir refused."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="vampomi_ranks_cli_") as d:
         fx = simulate_iid(n=n, m=m, lam=0.1, h2=0.8, seed=SEED)
         paths = write_fixture(fx, d, "ex")
+        y01 = (fx.X @ fx.beta + np.random.default_rng(SEED + 10).normal(size=n) > 0)
+        paths["binphen"] = os.path.join(d, "ex_bin.phen")
+        with open(paths["binphen"], "w") as f:
+            f.writelines(f"{i} {i} {int(v)}\n" for i, v in enumerate(y01))
 
-        def argv(sub, dtype, solver, k, *extra):
+        def argv(sub, model, dtype, solver, k, *extra):
             os.makedirs(os.path.join(d, sub), exist_ok=True)
-            return ["--run-mode", "infere", "--meth-file", paths["bin"], "--phen-file",
-                    paths["phen"], "--true-signal-file", paths["ts"], "--N", str(n), "--Mt",
-                    str(m), "--out-dir", os.path.join(d, sub), "--out-name", "r",
-                    "--iterations", str(k), "--stop-criteria-thr", "0", "--h2", "0.8",
-                    "--probs", "0.9,0.07,0.03", "--vars", "0.0,0.001,0.01", "--device", dev,
-                    "--compute-dtype", dtype, "--lmmse-solver", solver, "--seed", str(SEED),
-                    *extra]
+            hyper = (["--h2", "0.8"] if model == "linear" else ["--rho", "0.3", "--gam1", "1e-2"])
+            return ["--run-mode", "infere", "--model", model, "--meth-file", paths["bin"],
+                    "--phen-file", paths["phen"] if model == "linear" else paths["binphen"],
+                    "--true-signal-file", paths["ts"], "--N", str(n), "--Mt", str(m),
+                    "--out-dir", os.path.join(d, sub), "--out-name", "r", "--iterations", str(k),
+                    "--stop-criteria-thr", "0", "--probs", "0.9,0.07,0.03", "--vars",
+                    "0.0,0.001,0.01", "--device", dev, "--compute-dtype", dtype,
+                    "--lmmse-solver", solver, "--seed", str(SEED), *hyper, *extra]
 
-        def cli3(sub, *args):
-            lp = os.path.join(log_dir, f"ranks_cli_{sub}.log")
-            procs.append(torchrun(3, ["-m", "vampomi_tpu_torch.cli", *args], lp))
+        def launch3(tag, args):
+            """`args` under torch.distributed.run with 3 ranks, its output
+            to <log_dir>/ranks_cli_<tag>.log; (process, log path)."""
+            lp = os.path.join(log_dir, f"ranks_cli_{tag}.log")
+            procs.append(torchrun(3, args, lp))
             return procs[-1], lp
 
         procs = []
         try:
-            names = _ranks_cli_runs(d, dev, log_dir, m, iters, split, argv, cli3)
+            names = _ranks_cli_runs(d, paths, dev, log_dir, n, m, iters, split, argv, launch3)
         finally:  # nothing started here outlives a failed check
             for p in procs:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
     took = time.perf_counter() - t0
-    log(f"[ranks] cli: a 3-rank checkpoint at iteration {split} resumed to {iters} by 3 ranks "
-        f"({len(names)} files byte-identical to the straight run) and by one process (within "
-        f"rtol {RANK_RTOL['eigen']}); probit over 3 ranks refused naming ROADMAP.md; {took:.1f}s")
-    return dict(cli_seconds=took, resume_byte_identical_files=len(names))
+    log(f"[ranks] cli: each model's 3-rank checkpoint at iteration {split} resumed to {iters} "
+        f"by 3 ranks ({names} files byte-identical to the straight runs) and by one process "
+        f"(within rtol {RANK_RTOL['eigen']}); the run modes of both models over 3 ranks; only "
+        f"--profile-dir refused; {took:.1f}s")
+    return dict(cli_seconds=took, resume_byte_identical_files=names)
 
 
-def _ranks_cli_runs(d: str, dev: str, log_dir: str, m: int, iters: int, split: int, argv,
-                    cli3) -> list[str]:
+# (model, dtype, solver) of phase 10 (b)'s straight runs; int8 eigen runs
+# all the iterations (its checkpoint and its run modes go with it), the
+# others as many as the checkpoint's first half
+CLI_RANK_RUNS = (("linear", "int8", "eigen"), ("linear", "int8", "cg"),
+                 ("linear", "int4", "eigen"), ("linear", "int4", "cg"),
+                 ("bin_class", "int8", "eigen"), ("bin_class", "int8", "cg"),
+                 ("bin_class", "int4", "eigen"))
+
+
+def cli_ranks_worker(spec_path: str) -> int:
+    """One rank of a launch of phase 10 (b) that runs several CLI commands
+    (the JSON list of argv lists at spec_path) in one process group, each
+    through the CLI's own parse_config and run-mode dispatch (cli._run) on
+    the rank's slab: what `python -m vampomi_tpu_torch.cli` does for one
+    command, but with one process start and one group for all of them."""
+    import torch.distributed as dist
+
+    from vampomi_tpu_torch import sharding
+
+    with open(spec_path) as f:
+        argvs = json.load(f)
+    dev = resolve_device(sharding.init_from_env(cli.parse_config(argvs[0]).device))
+    try:
+        for argv in argvs:
+            cfg = cli.parse_config(argv)
+            check(cli._run(cfg, dev, sharding.shard_for(cfg.Mt, dev)) == 0,
+                  f"{argv[:4]}: non-zero exit")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _ranks_cli_runs(d: str, paths: dict, dev: str, log_dir: str, n: int, m: int, iters: int,
+                    split: int, argv, launch3) -> int:
     """The runs and checks of phase_ranks_cli in the fixture's directory d;
-    returns the files the 3-rank resume repeats byte for byte."""
-    # the 3-rank runs start together (the straight ones, the checkpoint's
-    # first half, probit) and the one-process runs go on here meanwhile
-    runs = [("int8", "eigen", iters), ("int8", "cg", split), ("int4", "eigen", split),
-            ("int4", "cg", split)]
-    started = [cli3(f"r3_{dt}_{s}", *argv(f"r3_{dt}_{s}", dt, s, k)) for dt, s, k in runs]
-    ck = os.path.join(d, "part", "ck.npz")
-    first, lp_first = cli3("part", *argv("part", "int8", "eigen", split, "--checkpoint-file", ck))
-    probit, lp_probit = cli3("probit", *argv("probit", "int8", "eigen", 2, "--model",
-                                             "bin_class"))
-    for dt, s, k in runs:
-        with engine_log(log_dir, f"ranks_cli_r1_{dt}_{s}"):
-            check(cli.main(argv(f"r1_{dt}_{s}", dt, s, k)) == 0, f"ranks cli {dt} {s}")
-    for (dt, s, k), (p, lp) in zip(runs, started):
-        wait(p, f"ranks cli 3 ranks {dt} {s}", lp)
-    wait(first, "ranks cli checkpoint run", lp_first)
-    text = wait(probit, "ranks cli probit", lp_probit, ok=False)
-    check(probit.returncode != 0 and "ROADMAP.md" in text,
-          f"ranks cli: probit over 3 ranks did not stop naming ROADMAP.md: {text[-2000:]}")
-    for dt, s, k in runs:
+    returns the number of files the two 3-rank resumes repeat byte for
+    byte.  The 3-rank commands of a wave start together and the one-process
+    runs go on here meanwhile."""
+    def cli3(sub, *args):  # one CLI command over 3 ranks
+        return launch3(sub, ["-m", "vampomi_tpu_torch.cli", *args])
+
+    runs = [(f"{mo}_{dt}_{s}", mo, dt, s, iters if (dt, s) == ("int8", "eigen") else split)
+            for mo, dt, s in CLI_RANK_RUNS]
+    started = [cli3(f"r3_{t}", *argv(f"r3_{t}", mo, dt, s, k)) for t, mo, dt, s, k in runs]
+    parts = {}
+    for model in ("linear", "bin_class"):
+        ck = os.path.join(d, f"part_{model}", "ck.npz")
+        parts[model] = (ck, cli3(f"part_{model}", *argv(f"part_{model}", model, "int8", "eigen",
+                                                        split, "--checkpoint-file", ck)))
+    refused, lp_refused = cli3("profile", *argv("profile", "linear", "int8", "eigen", 2,
+                                                "--profile-dir", os.path.join(d, "prof")))
+    t0 = time.perf_counter()
+    for t, mo, dt, s, k in runs:
+        with engine_log(log_dir, f"ranks_cli_r1_{t}"):
+            check(cli.main(argv(f"r1_{t}", mo, dt, s, k)) == 0, f"ranks cli one process {t}")
+    walls = {"wave1_one_process": time.perf_counter() - t0}
+    for (t, *_), (p, lp) in zip(runs, started):
+        wait(p, f"ranks cli 3 ranks {t}", lp)
+    for model, (_, (p, lp)) in parts.items():
+        wait(p, f"ranks cli {model} checkpoint run", lp)
+    text = wait(refused, "ranks cli --profile-dir", lp_refused, ok=False)
+    walls["wave1"] = time.perf_counter() - t0
+    check(refused.returncode != 0 and "ROADMAP.md" in text and "--profile-dir" in text,
+          f"ranks cli: --profile-dir over 3 ranks did not stop naming ROADMAP.md: {text[-2000:]}")
+    for t, mo, dt, s, k in runs:
         for it in range(1, k + 1):
             for kind in ("", "r1_"):
-                a = read_bin_slab(os.path.join(d, f"r3_{dt}_{s}", f"r_{kind}it_{it}.bin"), m)
-                b = read_bin_slab(os.path.join(d, f"r1_{dt}_{s}", f"r_{kind}it_{it}.bin"), m)
-                check(os.path.getsize(os.path.join(d, f"r3_{dt}_{s}", f"r_{kind}it_{it}.bin"))
-                      == 8 * m and within(a, b, RANK_RTOL[s]),
-                      f"ranks cli {dt} {s}: 3 ranks' {kind}it_{it} not within rtol of one")
-    log(f"[ranks] cli: 3 ranks (slabs 2,668 / 2,667 / 2,667) against one process, int8 and "
-        f"int4, eigen and CG: every dump full length and within rtol {RANK_RTOL} (atol: "
-        f"rtol times the dump's largest entry)")
-    check(load_checkpoint(ck)["iteration"] == split, "ranks cli: checkpoint iteration")
-    os.makedirs(os.path.join(d, "one"))
-    ck1 = os.path.join(d, "one", "ck.npz")
-    shutil.copyfile(ck, ck1)
-    resumed, lp = cli3("part", *argv("part", "int8", "eigen", iters, "--resume-file", ck))
-    with engine_log(log_dir, "ranks_cli_one_resumed"):
-        check(cli.main(argv("one", "int8", "eigen", iters, "--resume-file", ck1)) == 0,
-              "ranks cli: one process resuming the 3-rank checkpoint")
-    wait(resumed, "ranks cli 3 ranks resuming", lp)
-    names = [f"r_{c}.csv" for c in ("metrics", "params", "prior")]
-    names += [f"r_{kind}it_{i}.bin" for kind in ("", "r1_") for i in range(1, iters + 1)]
-    straight = os.path.join(d, "r3_int8_eigen")
-    for f in names:
-        check(_bytes(os.path.join(d, "part", f)) == _bytes(os.path.join(straight, f)),
-              f"ranks cli: the 3-rank resume's {f} is not the straight run's, byte for byte")
-    for it in range(split + 1, iters + 1):
-        for kind in ("", "r1_"):
-            a = read_bin_slab(os.path.join(d, "one", f"r_{kind}it_{it}.bin"), m)
-            b = read_bin_slab(os.path.join(straight, f"r_{kind}it_{it}.bin"), m)
-            check(within(a, b, RANK_RTOL["eigen"]),
-                  f"ranks cli: one process's resume {kind}it_{it} past rtol")
-    return names
+                path = os.path.join(d, f"r3_{t}", f"r_{kind}it_{it}.bin")
+                a = read_bin_slab(path, m)
+                b = read_bin_slab(os.path.join(d, f"r1_{t}", f"r_{kind}it_{it}.bin"), m)
+                check(os.path.getsize(path) == 8 * m and within(a, b, RANK_RTOL[s]),
+                      f"ranks cli {t}: 3 ranks' {kind}it_{it} not within rtol of one")
+        if mo == "bin_class":
+            a, b = (np.asarray(read_positional_csv(os.path.join(d, f"{w}_{t}", "r_metrics.csv")))
+                    for w in ("r3", "r1"))
+            counts = [1, 2, 3, 4, 7, 8, 9, 10]  # after the iteration column
+            check(a.shape == b.shape == (k, 13)
+                  and np.abs(a[:, counts] - b[:, counts]).max() <= PARITY_LABELS,
+                  f"ranks cli {t}: 3 ranks' confusion counts not within {PARITY_LABELS}")
+    log(f"[ranks] cli: 3 ranks (slabs 2,668 / 2,667 / 2,667) against one process, linear int8 "
+        f"and int4 with eigen and CG, probit int8 with eigen and CG and int4 with eigen: every "
+        f"dump full length and within rtol {RANK_RTOL} (atol: rtol times the dump's largest "
+        f"entry), probit counts within {PARITY_LABELS}")
+
+    # wave 2: each checkpoint resumed by 3 ranks and by one process; the run
+    # modes of both models on the one-process eigen runs' dumps
+    resumed = {}
+    for model, (ck, _) in parts.items():
+        check(load_checkpoint(ck)["iteration"] == split, f"ranks cli {model}: checkpoint iteration")
+        shutil.copyfile(ck, os.path.join(d, f"one_{model}.npz"))
+        resumed[model] = cli3(f"part_{model}", *argv(f"part_{model}", model, "int8", "eigen",
+                                                     iters, "--resume-file", ck))
+    lin, pb = (os.path.join(d, f"r1_{mo}_int8_eigen", "r") for mo in ("linear", "bin_class"))
+    gam1 = read_positional_csv(f"{lin}_params.csv")[iters - 1][2]
+
+    def mode_argv(sub, mode):
+        out = os.path.join(d, sub)
+        os.makedirs(out, exist_ok=True)
+        train = ["--meth-file", paths["bin"], "--phen-file", paths["phen"], "--N", str(n)]
+        test = ["--meth-file-test", paths["bin"], "--N-test", str(n)]
+        common = ["--Mt", str(m), "--out-dir", out, "--out-name", "m", "--compute-dtype", "int8",
+                  "--device", dev]
+        if mode in ("se", "loo", "loo_std"):
+            src = (["--r1-file", f"{lin}_r1_it_{iters}.bin", "--gam1", repr(gam1)]
+                   if mode == "se" else ["--estimate-file", f"{lin}_it_{iters}.bin"])
+            return ["--run-mode", "association_test", "--pval-method", mode, *train, *src,
+                    *common]
+        model = "bin_class" if mode.endswith("_probit") else "linear"
+        phen = paths["binphen"] if model == "bin_class" else paths["phen"]
+        est = pb if model == "bin_class" else lin
+        if mode.startswith("test"):
+            src = ["--estimate-file", f"{est}_it_1.bin", "--test-iter-range", f"1,{iters}"]
+        else:  # predict writes <prefix>.yhat beside its estimate
+            shutil.copyfile(f"{est}_it_{iters}.bin", os.path.join(out, f"y_it_{iters}.bin"))
+            src = ["--estimate-file", os.path.join(out, f"y_it_{iters}.bin")]
+        return ["--run-mode", mode.split("_")[0], "--model", model, *test, "--phen-file-test",
+                phen, *src, *common]
+
+    modes = ("se", "loo", "loo_std", "test", "predict", "test_probit", "predict_probit")
+    t0 = time.perf_counter()
+    # the seven mode commands in one launch of 3 ranks (cli_ranks_worker):
+    # a launch costs more than the commands it runs at this size
+    spec = os.path.join(d, "modes3.json")
+    with open(spec, "w") as f:
+        json.dump([mode_argv(f"m3_{mode}", mode) for mode in modes], f)
+    modes3 = launch3("m3", [os.path.join(ROOT, "chip_smoke.py"), "--cli-ranks", spec])
+    for mode in modes:
+        with engine_log(log_dir, f"ranks_cli_m1_{mode}"):
+            check(cli.main(mode_argv(f"m1_{mode}", mode)) == 0, f"ranks cli one process {mode}")
+    for model in parts:
+        with engine_log(log_dir, f"ranks_cli_one_resumed_{model}"):
+            check(cli.main(argv(f"one_{model}", model, "int8", "eigen", iters, "--resume-file",
+                                os.path.join(d, f"one_{model}.npz"))) == 0,
+                  f"ranks cli: one process resuming the 3-rank {model} checkpoint")
+    walls["wave2_one_process"] = time.perf_counter() - t0
+    wait(modes3[0], "ranks cli 3 ranks, the run modes", modes3[1])
+    for model, (p, lp) in resumed.items():
+        wait(p, f"ranks cli 3 ranks resuming {model}", lp)
+    walls["wave2"] = time.perf_counter() - t0
+    log(f"[ranks] cli: walls {({k: round(v, 1) for k, v in walls.items()})} (wave 1: 10 launches "
+        f"of 3 ranks; wave 2: 3)")
+    same = 0
+    for model in parts:
+        names = [f"r_{c}.csv" for c in ("metrics", "params", "prior")]
+        names += [f"r_{kind}it_{i}.bin" for kind in ("", "r1_") for i in range(1, iters + 1)]
+        straight = os.path.join(d, f"r3_{model}_int8_eigen")
+        for f in names:
+            check(_bytes(os.path.join(d, f"part_{model}", f)) == _bytes(os.path.join(straight, f)),
+                  f"ranks cli {model}: the 3-rank resume's {f} is not the straight run's, "
+                  "byte for byte")
+        same += len(names)
+        for it in range(split + 1, iters + 1):
+            for kind in ("", "r1_"):
+                a = read_bin_slab(os.path.join(d, f"one_{model}", f"r_{kind}it_{it}.bin"), m)
+                b = read_bin_slab(os.path.join(straight, f"r_{kind}it_{it}.bin"), m)
+                check(within(a, b, RANK_RTOL["eigen"]),
+                      f"ranks cli {model}: one process's resume {kind}it_{it} past rtol")
+    for mode in modes:
+        a, b = (os.path.join(d, f"{w}_{mode}") for w in ("m3", "m1"))
+        if mode in ("se", "loo", "loo_std"):
+            f = f"m_it_{iters}_pval_{mode}.bin"
+            va, vb = (read_bin_slab(os.path.join(x, f), m) for x in (a, b))
+            ok = (_bytes(os.path.join(a, f)) == _bytes(os.path.join(b, f)) if mode == "se"
+                  else within(-np.log10(va + 1e-300), -np.log10(vb + 1e-300),
+                              RANK_RTOL["eigen"]))
+        elif mode == "test":
+            va, vb = (np.asarray(read_positional_csv(os.path.join(x, "m_test.csv")))
+                      for x in (a, b))
+            ok = va.shape == (iters, 3) and within(va, vb, RANK_RTOL["eigen"])
+        elif mode == "test_probit":
+            va, vb = (_csv_raw(os.path.join(x, "m_test.csv")) for x in (a, b))
+            ok = va.shape == vb.shape == (iters, 6) and np.abs(
+                va[:, 1:5] - vb[:, 1:5]).max() <= PARITY_LABELS
+        else:
+            va, vb = (np.loadtxt(os.path.join(x, "y_.yhat")) for x in (a, b))
+            ok = va.shape == (n,) and within(va, vb, RANK_RTOL["eigen"])
+        check(ok, f"ranks cli {mode}: 3 ranks' output not within the bar of one process's")
+    log(f"[ranks] cli: the run modes over 3 ranks against one process: SE byte-identical, LOO "
+        f"and loo_std -log10 p, test (linear) and .yhat within rtol {RANK_RTOL['eigen']}, "
+        f"probit test counts within {PARITY_LABELS}")
+    return same
 
 
 def main_dumps(out_dir: str, dtype: str, solver: str, k: int) -> tuple[str, str, float]:
@@ -2160,82 +2542,116 @@ def main(argv=None) -> int:
                    help="an earlier gibbs_block.cu to hold the Gibbs kernel against in "
                         "phase 7: bitwise, and timed in turns")
     p.add_argument("--ranks-worker", default="", metavar="SPEC", help=argparse.SUPPRESS)
+    p.add_argument("--cli-ranks", default="", metavar="SPEC", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.ranks_worker:  # one process of phase 10, started by phase 10
         return ranks_worker(args.ranks_worker)
+    if args.cli_ranks:  # one rank of phase 10 (b)'s run modes
+        return cli_ranks_worker(args.cli_ranks)
+    t_start = time.perf_counter()
     dev = phase_device()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
+    timing = {}
+
+    @contextlib.contextmanager
+    def timed(name: str):
+        """Add the block's wall seconds to timing[name]."""
+        t = time.perf_counter()
+        yield
+        timing[name] = round(timing.get(name, 0.0) + time.perf_counter() - t, 1)
+
     with tempfile.TemporaryDirectory(prefix="vampomi_smoke_") as out_dir:
         log_dir = args.log_dir or out_dir
         os.makedirs(log_dir, exist_ok=True)
         t0 = time.perf_counter()
-        phase_build()
-        X8, X4, recs = phase_kernel(dev)
-        probe_recs, probe_counts = phase_probe(dev, X8, X4)
+        with timed("1_build"):
+            phase_build()
+        with timed("2_kernel"):
+            X8, X4, recs = phase_kernel(dev)
+        with timed("2b_probe"):
+            probe_recs, probe_counts = phase_probe(dev, X8, X4)
         recs.update(probe_recs)
-        for dtype in DTYPES:
-            phase_parity(dev, dtype, log_dir, out_dir)
-            phase_parity(dev, dtype, log_dir, out_dir, model="bin_class")
-        phase_parity(dev, "int8", log_dir, out_dir, model="bin_class", c=2,
-                     iters={"spectral": 4, "cg": 3})
-        phase_parity(dev, "int8", log_dir, out_dir, c=2, iters={"eigen": 4})
-        phase_parity(dev, "bf16", log_dir, out_dir)
-        phase_cli(dev, log_dir)
-        phase_cli_probit(dev, log_dir)
-        phase_resume(dev, log_dir)
-        for dtype in DTYPES:
-            phase_gibbs_parity(dev, dtype)
-        phase_gibbs_workflow(dev, log_dir)
-        main8 = phase_main("int8", lambda: design_from_codes(X8), log_dir, out_dir, x1_min=0.4,
-                           runs=MAIN_RUNS_INT8, cache=os.path.join(out_dir, "eigen_int8.npz"),
-                           checkpoint_cost=True)
+        with timed("3_parity"):
+            for dtype in DTYPES:
+                phase_parity(dev, dtype, log_dir, out_dir)
+                phase_parity(dev, dtype, log_dir, out_dir, model="bin_class")
+            phase_parity(dev, "int8", log_dir, out_dir, model="bin_class", c=2,
+                         iters={"spectral": 3, "cg": 2})
+            phase_parity(dev, "int8", log_dir, out_dir, c=2, iters={"eigen": 3})
+            phase_parity(dev, "bf16", log_dir, out_dir)
+        with timed("4_cli"):
+            phase_cli(dev, log_dir)
+            phase_cli_probit(dev, log_dir)
+        with timed("4b_resume"):
+            phase_resume(dev, log_dir)
+        with timed("7_gibbs"):
+            for dtype in DTYPES:
+                phase_gibbs_parity(dev, dtype)
+            phase_gibbs_workflow(dev, log_dir)
+        with timed("5_main_int8"):
+            main8 = phase_main("int8", lambda: design_from_codes(X8), log_dir, out_dir,
+                               x1_min=0.4, runs=MAIN_RUNS_INT8,
+                               cache=os.path.join(out_dir, "eigen_int8.npz"),
+                               checkpoint_cost=True)
         counts = dict(main8.launches)
-        mode_recs, mode_counts = phase_modes(
-            "int8", main8, out_dir, *main_dumps(out_dir, "int8", "auto", 4), test_runs=5)
+        with timed("5b_modes"):
+            mode_recs, mode_counts = phase_modes(
+                "int8", main8, out_dir, *main_dumps(out_dir, "int8", "auto", 4), test_runs=5)
         recs.update(mode_recs)
         counts.update(mode_counts)
-        probit_counts = phase_probit_main(main8, log_dir, out_dir)
+        with timed("5c_probit"):
+            probit_counts = phase_probit_main(main8, log_dir, out_dir)
         for name in ("atx_int8", "ax_batch_int8", "atx_batch_int8"):  # both main paths
             counts[name] += probit_counts[name]
-        recs["gibbs_block_update"] = phase_gibbs_kernel(main8, args.gibbs_reference)
-        gibbs_counts = phase_gibbs_main("int8", main8, out_dir, sweeps=3)
+        with timed("7_gibbs"):
+            recs["gibbs_block_update"] = phase_gibbs_kernel(main8, args.gibbs_reference)
+            gibbs_counts = phase_gibbs_main("int8", main8, out_dir, sweeps=3)
         for name in ("gibbs_block_update", "atx_int8", "ax_batch_int8"):  # and the sampler's
             counts[name] = counts.get(name, 0) + gibbs_counts[name]
         del X8, main8
         torch.cuda.empty_cache()  # the int8 X goes before the int4 path
-        main4 = phase_main("int4", lambda: design_from_packed(X4), log_dir, out_dir,
-                           x1_min=X1_MIN_INT4)
-        counts.update({name: c for name, c in main4.launches.items()
-                       if name in ("atx_packed4", "ax_batch_packed4", "atx_batch_packed4")})
-        mode_recs, mode_counts = phase_modes(
-            "int4", main4, out_dir, *main_dumps(out_dir, "int4", "eigen", 5), test_runs=5)
+        with timed("6_int4"):
+            main4 = phase_main("int4", lambda: design_from_packed(X4), log_dir, out_dir,
+                               x1_min=X1_MIN_INT4)
+            counts.update({name: c for name, c in main4.launches.items()
+                           if name in ("atx_packed4", "ax_batch_packed4", "atx_batch_packed4")})
+            mode_recs, mode_counts = phase_modes(
+                "int4", main4, out_dir, *main_dumps(out_dir, "int4", "eigen", 5), test_runs=5)
         recs.update(mode_recs)
         counts.update(mode_counts)
-        gibbs_counts = phase_gibbs_main("int4", main4, out_dir, sweeps=2)
+        with timed("7_gibbs"):
+            gibbs_counts = phase_gibbs_main("int4", main4, out_dir, sweeps=2)
         for name in ("gibbs_block_update", "atx_packed4", "ax_batch_packed4"):
             counts[name] += gibbs_counts[name]
         del X4, main4
         torch.cuda.empty_cache()  # the packed X goes before the bf16 path
-        main16 = phase_main("bf16", lambda: bf16_design(dev), log_dir, out_dir, x1_min=0.4,
-                            runs=MAIN_RUNS_BF16)
-        counts.update({name: c for name, c in main16.launches.items() if name.endswith("bf16")})
-        phase_modes("bf16", main16, out_dir, *main_dumps(out_dir, "bf16", "auto", 4),
-                    test_runs=4)
-        del main16
-        torch.cuda.empty_cache()
-        phase_doctor()
-        ranks = phase_ranks_main(dev, log_dir, out_dir)
-        ranks.update(phase_ranks_cli(dev, log_dir))
+        with timed("8_bf16"):
+            main16 = phase_main("bf16", lambda: bf16_design(dev), log_dir, out_dir, x1_min=0.4,
+                                runs=MAIN_RUNS_BF16)
+            counts.update({name: c for name, c in main16.launches.items()
+                           if name.endswith("bf16")})
+            phase_modes("bf16", main16, out_dir, *main_dumps(out_dir, "bf16", "auto", 4),
+                        test_runs=4)
+            del main16
+            torch.cuda.empty_cache()
+        with timed("9_doctor"):
+            phase_doctor()
+        with timed("10a_ranks"):
+            ranks = phase_ranks_main(dev, log_dir, out_dir)
+        with timed("10b_ranks_cli"):
+            ranks.update(phase_ranks_cli(dev, log_dir))
         counts.update(probe_counts)
         for name, c in counts.items():
             check(c > 0, f"{name} was never launched on its own path")
+        timing["total"] = round(time.perf_counter() - t_start, 1)
         log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     kernels = [dict(name=name, route="cuda", source=k.source, replaces=k.replaces,
                     launches=counts[name],
                     **{key: recs[name][key] for key in ("max_abs_err", "ms", "plain_ms",
                                                         "bound_ms", "bound_by", "library_ms")})
                for name, k in KERNELS.items()]
+    print("[timing] " + json.dumps(timing), flush=True)
     print(json.dumps({"ranks": dict(card=smi, **ranks)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,6 +11,8 @@ Tolerances: f64 across rank counts and packages differs only by the order
 of the sums over markers, 1e-10 relative; int8 works in f32, and there the
 JAX package's own bar across process counts holds, rtol 1e-4 and atol 2e-6
 (tests/test_multihost.py:186-190).  The ranks of one run hold the same bits.
+The CLI runs both models over ranks (tests/test_torch_multirank_modes.py
+holds probit and the run modes to JAX and to one process).
 """
 
 import os
@@ -249,8 +251,20 @@ def test_cli_under_torchrun_writes_full_files(work):
     assert len(rows.decode().strip().splitlines()) == 4  # the header and 3 rows
 
 
-def test_cli_refuses_probit_over_ranks(work):
-    p = _torchrun(work, "pb2", "--model", "bin_class")
-    assert p.returncode != 0
-    assert "ROADMAP.md" in p.stdout + p.stderr
-    assert not os.path.exists(os.path.join(work, "pb2_params.csv"))
+def test_cli_runs_probit_over_ranks(work):
+    """--model bin_class over 2 ranks: 0/1 labels of the fixture's phenotype;
+    rank 0 writes the CSVs (8 values a params row), each rank its slab of
+    every dump, all full length and finite."""
+    rows = [line.split() for line in open(f"{work}/ex160.phen").read().splitlines()]
+    with open(f"{work}/ex160_01.phen", "w") as f:
+        f.writelines(f"{a} {b} {int(float(v) > 0)}\n" for a, b, v in rows)
+    p = _torchrun(work, "pb2", "--model", "bin_class", "--phen-file", f"{work}/ex160_01.phen",
+                  "--rho", "0.3", "--gam1", "1e-2", "--lmmse-solver", "eigen")
+    assert p.returncode == 0, (p.stdout + p.stderr)[-3000:]
+    for k in (1, 2, 3):
+        for kind in ("it", "r1_it"):
+            d = _dump(work, "pb2", k, kind)
+            assert d.shape == (160,) and np.all(np.isfinite(d))
+    text = open(os.path.join(work, "pb2_params.csv"), "rb").read().replace(b"\0", b"").decode()
+    rows = [r.split(",") for r in text.strip().splitlines()[1:]]
+    assert [len(r) for r in rows] == [9, 9, 9]

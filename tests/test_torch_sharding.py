@@ -3,7 +3,8 @@ piece: the work split against the JAX package's, the backend rule, the
 collective helpers over gloo ranks (tests/torch_ranks.py), the slabs of a
 design and of an artifact file against one process's, the JAX package's
 padded mesh designs and checkpoints cut to the port's slabs, the CLI's
-refusals, and the one-process engine unchanged by all of it."""
+refusals, and the one-process engines and run modes unchanged by all of
+it."""
 
 import json
 import os
@@ -155,20 +156,25 @@ def test_padded_jax_checkpoint_is_cut_to_mt(padded_jax):
 
 
 @pytest.mark.parametrize("argv,ok", [
-    (["--model", "bin_class"], False), (["--run-mode", "test"], False),
-    (["--run-mode", "predict"], False), (["--run-mode", "association_test"], False),
-    ([], True)])
+    (["--model", "bin_class"], True), (["--run-mode", "test"], True),
+    (["--run-mode", "predict", "--model", "bin_class"], True),
+    (["--run-mode", "association_test", "--pval-method", "loo"], True),
+    ([], True), (["--profile-dir", "prof"], False)])
 def test_cli_refuses_what_ranks_do_not_run(monkeypatch, argv, ok):
+    """Over ranks every model and run mode runs; only --profile-dir is
+    refused, naming ROADMAP.md, on any number of ranks."""
     monkeypatch.setenv("VAMPOMI_DISTRIBUTED", "1")
-    monkeypatch.setenv("WORLD_SIZE", "2")
     base = ["--meth-file", "x.bin", "--device", "cpu"]
-    if ok:
-        assert cli.parse_config(base + argv).model == "linear"
-    else:
-        with pytest.raises(SystemExit, match="ROADMAP.md"):
-            cli.parse_config(base + argv)
-    monkeypatch.setenv("WORLD_SIZE", "1")
-    cli.parse_config(base + argv)  # one rank runs everything
+    for world in ("2", "1"):
+        monkeypatch.setenv("WORLD_SIZE", world)
+        if ok:
+            cfg = cli.parse_config(base + argv)
+            assert [cfg.model, cfg.run_mode] == [
+                argv[argv.index(f) + 1] if f in argv else d
+                for f, d in (("--model", "linear"), ("--run-mode", "infere"))]
+        else:
+            with pytest.raises(SystemExit, match="ROADMAP.md"):
+                cli.parse_config(base + argv)
 
 
 def test_one_rank_group_is_bitwise_no_group(tmp_path):
@@ -239,12 +245,124 @@ print(json.dumps(out))
 """
 
 
+def _pinned() -> dict:
+    """The rank environment with every library pinned to one code path."""
+    return dict(env(), ATEN_CPU_CAPABILITY="default", MKL_CBWR="COMPATIBLE",
+                OPENBLAS_CORETYPE="Haswell",
+                NPY_DISABLE_CPU_FEATURES="AVX512F AVX512CD AVX512_SKX AVX512_CLX "
+                                         "AVX512_CNL AVX512_ICL")
+
+
 def test_one_process_engine_is_bitwise_unchanged():
-    pinned = dict(env(), ATEN_CPU_CAPABILITY="default", MKL_CBWR="COMPATIBLE",
-                  OPENBLAS_CORETYPE="Haswell",
-                  NPY_DISABLE_CPU_FEATURES="AVX512F AVX512CD AVX512_SKX AVX512_CLX "
-                                           "AVX512_CNL AVX512_ICL")
-    p = subprocess.run([sys.executable, "-c", _GOLDEN_RUN], cwd=REPO, env=pinned,
+    p = subprocess.run([sys.executable, "-c", _GOLDEN_RUN], cwd=REPO, env=_pinned(),
                        capture_output=True, text=True, timeout=120)
     assert p.returncode == 0, p.stderr[-3000:]
     assert json.loads(p.stdout.strip().splitlines()[-1]) == GOLDEN
+
+
+# The one-process probit engine and the run modes on a fixed problem, as
+# digests of every output (metrics, estimates, r1, gam1, tau1, cov_eff,
+# the checkpoint's contents and every file the run wrote), pinned as above.
+# Taken from the code before probit and the modes took a shard: f64, int8
+# and int4, eigen, spectral and CG, C = 2 covariates, checkpoints; SE, LOO,
+# loo_std, test and predict for both models, f64 and int8.
+GOLDEN_PROBIT = {
+    "p_float64_eigen": "728843d8a9eda8f9", "p_float64_spectral": "bf4b4edfd0966af6",
+    "p_float64_cg": "0d1c8a624deff705", "p_int8_eigen": "17b0283e64bb6b7d",
+    "p_int8_cg": "92d5dccd2174baee", "p_int4_spectral": "cf739dbe2a366f6b",
+    "a_float64_se": "e4e37e071c9fa416", "a_float64_loo": "effa571b9ac9847e",
+    "a_float64_loo_std": "f12e65af09353dbb", "t_float64": "67ed0757bdda4014",
+    "y_float64": "aa0f96f27475ddcc", "tp_float64": "b11958287d0a2ccb",
+    "yp_float64": "cd55722657a363d3", "a_int8_se": "498fcd1ef1dfe456",
+    "a_int8_loo": "9e4de8fc3887b3a2", "a_int8_loo_std": "af870e37ccbfc8cb",
+    "t_int8": "37c77d42b3589379", "y_int8": "e08e06c2044d0dab",
+    "tp_int8": "c8467305e2aa61b2", "yp_int8": "9ca68b4715e6d5dc"}
+_GOLDEN_PROBIT_RUN = r"""
+import dataclasses, hashlib, json, os, tempfile
+import numpy as np, torch
+torch.set_num_threads(1)
+from vampomi_tpu_torch.config import RunConfig
+from vampomi_tpu_torch.dataset import load_dataset
+from vampomi_tpu_torch.engine.checkpoint import load_checkpoint
+from vampomi_tpu_torch.engine.linear import infere_linear
+from vampomi_tpu_torch.engine.probit import infere_bin_class
+from vampomi_tpu_torch.modes.association import run_association_test
+from vampomi_tpu_torch.modes.predict import run_predict
+from vampomi_tpu_torch.modes.test_mode import run_test_linear, run_test_probit
+from vampomi_tpu_torch.sim.data_sim import main as sim_main
+HYPER = dict(probs=[0.9, 0.07, 0.03], vars=[0.0, 1e-3, 1e-2], stop_criteria_thr=0.0, seed=7,
+             trace=0, device="cpu")
+out = {}
+def digest(name, d, *arrays):
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(np.asarray(a, dtype=np.float64)).tobytes())
+    for f in sorted(os.listdir(d)):
+        if f.startswith(name + "_") or f.startswith(name + "."):
+            h.update(f.encode()); h.update(open(os.path.join(d, f), "rb").read())
+    out[name] = h.hexdigest()[:16]
+dt = lambda s: RunConfig(compute_dtype=s).resolved_compute_dtype()
+with tempfile.TemporaryDirectory() as d:
+    sim_main(["--out-dir", d, "--out-name", "ex", "-N", "120", "-M", "160", "--seed", "4"])
+    ts = np.fromfile(d + "/ex_ts.bin")
+    rows = [line.split() for line in open(d + "/ex.phen").read().splitlines()]
+    open(d + "/ex01.phen", "w").write("".join(f"{a} {b} {int(float(v) > 0)}\n"
+                                              for a, b, v in rows))
+    z = np.random.default_rng(1).normal(size=(120, 2))
+    open(d + "/ex.cov", "w").write("ID FID c1 c2\n" + "".join(
+        f"{i} {i} {a!r} {b!r}\n" for i, (a, b) in enumerate(z.tolist())))
+    for dtype, solver, c, ck in (("float64", "eigen", 2, True), ("float64", "spectral", 0, False),
+                                 ("float64", "cg", 0, False), ("int8", "eigen", 0, False),
+                                 ("int8", "cg", 0, True), ("int4", "spectral", 2, False)):
+        ds = load_dataset(d + "/ex.bin", d + "/ex01.phen", 120, 160, "bin_class", dt(dtype),
+                          "cpu", cov_file=d + "/ex.cov" if c else "", c=c)
+        name = f"p_{dtype}_{solver}"
+        cfg = RunConfig(out_dir=d, out_name=name, iterations=4, rho=0.3, gam1=1e-2, C=c,
+                        lmmse_solver=solver, compute_dtype=dtype, model="bin_class",
+                        checkpoint_file=os.path.join(d, name + ".npz") if ck else "", **HYPER)
+        res = infere_bin_class(ds.dm, ds.phen.y, cfg, true_signal=ts, covariates=ds.covariates)
+        arrs = [np.asarray(res.metrics_history), res.x1_hat_scaled, res.r1_scaled,
+                [res.gam1, res.tau1], res.cov_eff if res.cov_eff is not None else []]
+        if ck:
+            k = load_checkpoint(os.path.join(d, name + ".npz"))
+            arrs += [k["arrays"][a] for a in sorted(k["arrays"])]
+            arrs += [[k["scalars"][a] for a in sorted(k["scalars"])], k["prior"]["probs"],
+                     k["prior"]["vars"], k["rng_state"], [k["iteration"]]]
+        digest(name, d, *arrs)
+    for dtype in ("float64", "int8"):
+        lin = f"l_{dtype}"
+        ds = load_dataset(d + "/ex.bin", d + "/ex.phen", 120, 160, "linear", dt(dtype), "cpu")
+        cfg = RunConfig(out_dir=d, out_name=lin, iterations=4, h2=0.8, lmmse_solver="eigen",
+                        compute_dtype=dtype, **HYPER)
+        res = infere_linear(ds.dm, ds.phen.y, cfg, true_signal=ts)
+        mcfg = RunConfig(out_dir=d, N=120, Mt=160, N_test=120, gam1=res.gam1, device="cpu",
+                         r1_file=f"{d}/{lin}_r1_it_4.bin", estimate_file=f"{d}/{lin}_it_4.bin",
+                         test_iter_range=[1, 4])
+        for method in ("se", "loo", "loo_std"):
+            name = f"a_{dtype}_{method}"
+            pv = run_association_test(ds, dataclasses.replace(mcfg, out_name=name,
+                                                              pval_method=method))
+            digest(name, d, pv)
+        name = f"t_{dtype}"
+        digest(name, d, run_test_linear(ds, dataclasses.replace(
+            mcfg, out_name=name, estimate_file=f"{d}/{lin}_it_1.bin")))
+        np.fromfile(f"{d}/{lin}_it_4.bin").tofile(f"{d}/y_{dtype}_it_4.bin")
+        digest(f"y_{dtype}", d, run_predict(ds, dataclasses.replace(
+            mcfg, estimate_file=f"{d}/y_{dtype}_it_4.bin")))
+        dsp = load_dataset(d + "/ex.bin", d + "/ex01.phen", 120, 160, "bin_class", dt(dtype),
+                           "cpu")
+        name = f"tp_{dtype}"
+        digest(name, d, run_test_probit(dsp, dataclasses.replace(
+            mcfg, out_name=name, estimate_file=f"{d}/p_{dtype}_eigen_it_1.bin")))
+        np.fromfile(f"{d}/p_{dtype}_eigen_it_4.bin").tofile(f"{d}/yp_{dtype}_it_4.bin")
+        digest(f"yp_{dtype}", d, run_predict(dsp, dataclasses.replace(
+            mcfg, estimate_file=f"{d}/yp_{dtype}_it_4.bin")))
+print(json.dumps(out))
+"""
+
+
+def test_one_process_probit_and_modes_are_bitwise_unchanged():
+    p = subprocess.run([sys.executable, "-c", _GOLDEN_PROBIT_RUN], cwd=REPO, env=_pinned(),
+                       capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0, p.stderr[-3000:]
+    assert json.loads(p.stdout.strip().splitlines()[-1]) == GOLDEN_PROBIT

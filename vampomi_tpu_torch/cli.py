@@ -16,15 +16,17 @@ ROADMAP.md; it is not replaced by other behaviour.
 
     python -m vampomi_tpu_torch.cli --device cuda --meth-file x.bin ...
 
-Linear `--run-mode infere` also runs with the markers split over ranks, one
-process a rank, each holding a contiguous slab (sharding.py):
+Every run mode of both models also runs with the markers split over ranks,
+one process a rank, each holding a contiguous slab (sharding.py):
 
     VAMPOMI_DISTRIBUTED=1 python -m torch.distributed.run --nproc-per-node P \
         -m vampomi_tpu_torch.cli ...
 
 The backend is gloo for `--device cpu`, nccl with a card per local rank,
-gloo when ranks share a card.  Probit and the other run modes refuse more
-than one rank, naming ROADMAP.md.
+gloo when ranks share a card.  Rank 0 writes the CSVs, the trace, the
+checkpoint and `.yhat`; each rank writes its slab of the dumps and of a
+p-value file, so every file is the one a single process writes, to the
+rounding of the sums over markers.
 """
 
 from __future__ import annotations
@@ -178,18 +180,11 @@ def _distributed() -> bool:
 
 def _reject_unported(cfg: RunConfig) -> None:
     """SystemExit naming ROADMAP.md for what the port does not run yet:
-    --profile-dir, and more than one rank for anything but linear
-    --run-mode infere."""
+    --profile-dir."""
     if cfg.profile_dir:
         raise SystemExit(
             "vampomi_tpu_torch: --profile-dir not ported yet — see the "
             "port's queue in ROADMAP.md (use the JAX package vampomi_tpu meanwhile)")
-    world = int(os.environ.get("WORLD_SIZE", "1")) if _distributed() else 1
-    if world > 1 and (cfg.model != "linear" or cfg.run_mode != "infere"):
-        raise SystemExit(
-            f"vampomi_tpu_torch: --model {cfg.model} --run-mode {cfg.run_mode} over {world} "
-            "ranks not ported yet — only linear --run-mode infere runs sharded; see the "
-            "port's queue in ROADMAP.md (run it as one process meanwhile)")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -214,8 +209,8 @@ def main(argv: list[str] | None = None) -> int:
 
 
 def _run(cfg: RunConfig, device, shard) -> int:
-    """The run mode of `cfg` on `device`; linear infere on the rank's slab of
-    `shard` (None: one process)."""
+    """The run mode of `cfg` on `device`, on the rank's slab of `shard`
+    (None: one process)."""
     dtype = cfg.resolved_compute_dtype()
 
     from .dataset import load_dataset
@@ -223,14 +218,13 @@ def _run(cfg: RunConfig, device, shard) -> int:
     if cfg.run_mode == "infere":
         ds = load_dataset(cfg.meth_file, cfg.phen_file, cfg.N, cfg.Mt, cfg.model,
                           dtype, device, alpha_scale=cfg.alpha_scale,
-                          cov_file=cfg.cov_file, c=cfg.C,
-                          shard=shard if cfg.model == "linear" else None)
+                          cov_file=cfg.cov_file, c=cfg.C, shard=shard)
     elif cfg.run_mode == "association_test":
         ds = load_dataset(cfg.meth_file, cfg.phen_file, cfg.N, cfg.Mt, cfg.model,
-                          dtype, device, alpha_scale=cfg.alpha_scale)
+                          dtype, device, alpha_scale=cfg.alpha_scale, shard=shard)
     else:
         ds = load_dataset(cfg.meth_file_test, cfg.phen_file_test, cfg.N_test, cfg.Mt,
-                          cfg.model, dtype, device, alpha_scale=cfg.alpha_scale)
+                          cfg.model, dtype, device, alpha_scale=cfg.alpha_scale, shard=shard)
 
     if cfg.run_mode == "infere":
         from .io.bin_io import read_bin_slab

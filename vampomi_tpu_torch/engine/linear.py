@@ -77,7 +77,8 @@ from ..prior.mixture import (
     MixturePrior, em_update, g1, g1d, init_prior, merge_components_device,
 )
 from ..sharding import (
-    Shard, all_reduce_, all_reduce_many, broadcast_from0, gather_m, is_writer, local_rows,
+    Shard, all_reduce_, all_reduce_many, broadcast_, broadcast_from0, gather_m, is_writer,
+    local_rows,
 )
 from ..utils.async_writer import AsyncWriter
 from ..utils.telemetry import Tracer
@@ -176,11 +177,6 @@ def _nmse_from(s: torch.Tensor):
     num, denom = s[0].to(torch.float64), s[1].to(torch.float64)
     return torch.where(denom > 0.0, torch.sqrt(num / torch.where(denom > 0.0, denom, 1.0)),
                        math.inf)
-
-
-def _nmse(x1_hat, x1_hat_prev):
-    """Stopping-criterion NMSE of one process."""
-    return _nmse_from(_nmse_sums(x1_hat, x1_hat_prev))
 
 
 def _late_sums(dm: DesignMatrix, dev2, dev1, x1_hat, x2_hat, x1_hat_prev, ts, *extra):
@@ -472,6 +468,24 @@ def build_eigen_budgeted(fac, cfg: RunConfig, shard: Shard | None = None):
     return ef, diag
 
 
+def fit_covariates(y, covariates: np.ndarray, cfg: RunConfig,
+                   shard: Shard | None = None) -> np.ndarray:
+    """The covariates' effects, fitted once by the probit Newton solver
+    (glm/probit.newton_method_cov; src/vamp.cpp:153-169,
+    src/vamp_probit.cpp:525-617).  With a shard, rank 0 fits them and
+    broadcasts the C values: a host BLAS may round a product differently
+    from one process to the next, and every rank must hold the same bits.
+    The caller broadcasts the N-vector it makes of them for the same
+    reason."""
+    cov_eff = np.zeros(covariates.shape[1])
+    if shard is None or shard.rank == 0:
+        cov_eff = newton_method_cov(
+            np.asarray(y), np.zeros(len(y)), covariates, np.zeros(cfg.C),
+            probit_var=cfg.probit_var, verbosity=cfg.verbosity,
+        )
+    return np.asarray(broadcast_from0(cov_eff, shard), dtype=np.float64)
+
+
 def _probe_count(dm: DesignMatrix) -> int:
     """The entries of a probe draw: every marker's, the whole Mt on every
     rank of a sharded run (which then keeps its own slab), so the draws are
@@ -696,11 +710,9 @@ def infere_linear(
     # covariate adjustment, once (src/vamp.cpp:153-169; JAX engine/linear.py:718-727)
     if cfg.C > 0 and covariates is not None and covariates.shape[1] > 0:
         t_cov = time.time()
-        cov_eff = newton_method_cov(
-            np.asarray(y), np.zeros(N), covariates, np.zeros(cfg.C),
-            probit_var=cfg.probit_var, verbosity=cfg.verbosity,
-        )
-        y_adj = torch.as_tensor(np.asarray(y) - covariates @ cov_eff).to(device=dev, dtype=wd)
+        cov_eff = fit_covariates(y, covariates, cfg, shard)
+        y_adj = broadcast_(torch.as_tensor(np.asarray(y) - covariates @ cov_eff).to(
+            device=dev, dtype=wd), shard)
         setup["cov"] = time.time() - t_cov
 
     # exact-state resume (vampomi_tpu/engine/linear.py:729-750)

@@ -40,6 +40,20 @@ card.  Checkpoint/resume and the eigen cache work as in the linear engine
 (engine/checkpoint.py, ops/eigen.py); the probit state adds r2, p1, p2 and
 the covariate offsets.  The JAX engine's compile-ahead threads are a TPU
 workaround with no counterpart.
+
+Sharded over markers (`dm.shard`, sharding.py), each rank runs this loop on
+its slab, as the linear engine does.  The sums over markers meet the other
+ranks in as few all_reduces as the data flow allows: an exact iteration
+makes three (alpha1, which the LMMSE step needs; the two-column ax_batch
+pass; the error measures and the NMSE at its end) and, from iteration 2,
+one more for the EM update; a CG iteration makes seven (alpha1; A x1 for
+the metrics; the solve's first pass and first batch; alpha2's probe dot;
+z2 = A x2; the late sums) and three a CG step, plus the EM update's.  The
+N-vectors (p1, p2, z, the labels, the covariate offsets) are replicated,
+and every branch reads a replicated value.  Rank 0 fits the covariates and
+broadcasts them, and alone writes the CSVs, the trace and the checkpoint
+(the full vectors, gathered on the main thread); each rank writes its slab
+of the dumps.
 """
 
 from __future__ import annotations
@@ -52,23 +66,25 @@ import numpy as np
 import torch
 
 from ..config import RunConfig
-from ..glm.probit import g1_bin_class, g1d_bin_class, newton_method_cov
-from ..io.bin_io import HostStager
+from ..glm.probit import g1_bin_class, g1d_bin_class
+from ..io.bin_io import HostCopy, HostStager
 from ..ops.cg import cg_solve
 from ..ops.eigen import eigen_solve, eigen_traces
 from ..ops.operator import PACKED4_DTYPE, DesignMatrix, atx, ax, ax_batch, f64
 from ..ops.spectral import shift_inverse, spectral_solve, spectral_traces
 from ..prior.mixture import MixturePrior, g1, g1d, init_prior
+from ..sharding import all_reduce_, all_reduce_many, broadcast_, gather_m, is_writer, local_rows
 from ..utils.async_writer import AsyncWriter
 from ..utils.mathx import normal_cdf
 from ..utils.telemetry import Tracer
 from .checkpoint import load_resume
 from .linear import (
-    _clamp, _draw_probe, _em_phase, _log, _nmse, _skip_probe, build_lmmse_factor,
-    checkpoint_iteration, choose_lmmse_solver, dump_iteration, open_csvs, restore_generator,
-    restore_prior, restore_vectors, warn_em_stability,
+    _clamp, _draw_probe, _em_phase, _log, _m_global, _nmse_from, _nmse_sums, _skip_probe,
+    build_lmmse_factor, checkpoint_iteration, choose_lmmse_solver, dump_iteration,
+    fit_covariates, open_csvs, restore_generator, restore_prior, restore_vectors,
+    warn_em_stability,
 )
-from .metrics import _corr, confusion_counts
+from .metrics import confusion_counts, signal_from_sums, signal_sums
 
 
 class ProbitResult(NamedTuple):
@@ -89,6 +105,8 @@ class ProbitResult(NamedTuple):
     setup: dict | None = None
     # the LMMSE solver that ran: auto resolved, after the eigen fallbacks
     solver: str | None = None
+    # collectives each iteration ran (sharded runs; sharding.Shard.counts)
+    iter_collectives: list | None = None
 
 
 def _probit_phase(
@@ -125,15 +143,14 @@ def _probit_phase(
 
     # ---------- denoise x (src/vamp_probit.cpp:97-165) ----------
     x1_new = g1(r1, gam1, prior)
-    alpha1_new = (g1d(r1, gam1, prior) * dm.mmask).sum().to(torch.float64) / dm.mt
+    g1d_sum = all_reduce_((g1d(r1, gam1, prior) * dm.mmask).sum(), dm.shard)
+    alpha1_new = g1d_sum.to(torch.float64) / dm.mt
     eta1 = gam1 / alpha1_new  # uses UNdamped alpha1 (line 130)
     if damp:
         x1_hat = c(rho) * x1_new + c(1.0 - rho) * x1_hat_prev
         alpha1 = rho * alpha1_new + (1.0 - rho) * alpha1_prev
     else:
         x1_hat, alpha1 = x1_new, alpha1_new
-
-    x1_corr = _corr(x1_hat, ts).to(torch.float64)
 
     gam2 = _clamp(eta1 - gam1)
     r2_new = (c(eta1) * x1_hat - c(gam1) * r1) / c(gam2)
@@ -173,7 +190,8 @@ def _probit_phase(
         )
         x2_hat = res.mu[:, 0]
         invq_bern = res.mu[:, 1]
-        alpha2 = gam2 * torch.dot(bern.to(wd), invq_bern).to(torch.float64)
+        alpha2 = gam2 * all_reduce_(torch.dot(bern.to(wd), invq_bern), dm.shard).to(
+            torch.float64)
         z2_hat = ax(dm, x2_hat)
         cg_iters = res.iters
     else:
@@ -184,7 +202,12 @@ def _probit_phase(
     tp1, tn1, fp1, fn1 = confusion_counts(y, y1_hat)
     acc1 = (tp1 + tn1).to(torch.float64) / dm.n
 
-    x2_corr = _corr(x2_hat, ts).to(torch.float64)
+    # the error measures over markers, summed over the ranks in one
+    # all_reduce: nothing inside the iteration reads them
+    s1, s2, nm = all_reduce_many(
+        [signal_sums(x1_hat, ts, dm.n), signal_sums(x2_hat, ts, dm.n),
+         _nmse_sums(x1_hat, x1_hat_prev)], dm.shard)
+    x1_corr, x2_corr = signal_from_sums(s1)[0], signal_from_sums(s2)[0]
 
     r1_new = (x2_hat - c(alpha2) * r2_new) / c(1.0 - alpha2)
     gam1_new = _clamp(gam2 * (1.0 - alpha2) / alpha2)
@@ -205,7 +228,7 @@ def _probit_phase(
     params = torch.stack([alpha1, beta1, gam1, tau1, alpha2, beta2, gam2, tau2])
 
     return dict(
-        nmse=_nmse(x1_hat, x1_hat_prev),
+        nmse=_nmse_from(nm),
         x1_hat=x1_hat, alpha1=alpha1, gam2=gam2, r2=r2_new,
         x2_hat=x2_hat, alpha2=alpha2, r1=r1_new, gam1=gam1_new,
         p1=p1_new, p2=p2_new, tau1=tau1_new, tau2=tau2,
@@ -230,18 +253,22 @@ def infere_bin_class(
     write_outputs: bool = True,
 ) -> ProbitResult:
     """Run probit GLM-VAMP.  `y` (0/1), `true_signal`, `x1hat_init` and the
-    (N, C) z-scored `covariates` are host arrays in file units; `dm` is the
-    design operator on the run's device."""
+    (N, C) z-scored `covariates` are host arrays in file units (the global
+    Mt markers; a sharded `dm` takes its slab of them); `dm` is the design
+    operator on the run's device."""
     M_pad = dm.m_pad
     Mt = int(dm.mt)
     N = int(dm.n)
     sqrt_n = float(np.sqrt(N))
     wd = dm.wd
     dev = dm.device
+    shard = dm.shard
+    lo = 0 if shard is None else shard.lo
 
     def pad_m(vec):
         out = np.zeros(M_pad, dtype=np.float64)
         if vec is not None:
+            vec = local_rows(vec, shard)
             out[: len(vec)] = vec
         return torch.as_tensor(out).to(device=dev, dtype=wd)
 
@@ -268,14 +295,11 @@ def infere_bin_class(
     m_cov = torch.zeros(N, dtype=wd, device=dev)
     if cfg.C > 0 and covariates is not None and covariates.shape[1] > 0:
         t_cov = time.time()
-        cov_eff = newton_method_cov(
-            np.asarray(y), np.zeros(N), covariates, np.zeros(cfg.C),
-            probit_var=cfg.probit_var, verbosity=cfg.verbosity,
-        )
-        m_cov = torch.as_tensor(covariates @ cov_eff).to(device=dev, dtype=wd)
+        cov_eff = fit_covariates(y, covariates, cfg, shard)
+        m_cov = broadcast_(torch.as_tensor(covariates @ cov_eff).to(device=dev, dtype=wd), shard)
         setup["cov"] = time.time() - t_cov
 
-    solver = choose_lmmse_solver(cfg, Mt, N)
+    solver = choose_lmmse_solver(cfg, Mt, N, shard)
     if solver not in ("cg", "eigen", "spectral"):
         raise ValueError(f"unknown LMMSE solver {solver!r}")
     warn_em_stability(cfg, Mt, N)
@@ -284,8 +308,9 @@ def infere_bin_class(
     it_start = 1
     if cfg.resume_file:
         ck = load_resume(cfg.resume_file, model="bin_class", solver=solver,
-                         mt=Mt, n=N, m_pad=M_pad)
-        x1_hat, r1, r2, p1, p2 = restore_vectors(ck, ("x1_hat", "r1", "r2", "p1", "p2"), dev, wd)
+                         mt=Mt, n=N, m_pad=_m_global(dm))
+        x1_hat, r1, r2 = restore_vectors(ck, ("x1_hat", "r1", "r2"), dev, wd, shard)
+        p1, p2 = restore_vectors(ck, ("p1", "p2"), dev, wd)
         if "m_cov" in ck["arrays"]:
             (m_cov,) = restore_vectors(ck, ("m_cov",), dev, wd)
         sc = ck["scalars"]
@@ -310,6 +335,7 @@ def infere_bin_class(
     stager = HostStager(dev)
 
     metrics_history = []
+    iter_collectives = [] if shard is not None else None
     it_done = 0
     L = prior.L
     exact = solver in ("spectral", "eigen")
@@ -318,6 +344,7 @@ def infere_bin_class(
     try:
         for it in range(it_start, cfg.iterations + 1):
             tracer.start()
+            coll0 = shard.collectives() if shard is not None else 0
             _log(f"\n********************\niteration = {it}\n********************")
 
             x1_prev = x1_hat
@@ -365,7 +392,7 @@ def infere_bin_class(
 
             if write_outputs:
                 writer.submit(dump_iteration, cfg, Mt, sqrt_n, it,
-                              stager.copy((x1_hat, r1_in)))
+                              stager.copy((x1_hat, r1_in)), lo)
 
             metrics_history.append(metrics)
             if write_outputs:
@@ -386,12 +413,21 @@ def infere_bin_class(
 
             if cfg.checkpoint_file:  # vampomi_tpu/engine/probit.py:563-572
                 names = ("x1_hat", "r1", "r2", "p1", "p2", "m_cov")
-                writer.submit(
-                    checkpoint_iteration, cfg, "bin_class", dm, it,
-                    stager.copy((x1_hat, r1, r2, p1, p2, m_cov)), names, {},
-                    dict(gam1=gam1_h, tau1=tau1_h, gam2=params[6], alpha1=params[0]),
-                    dict(probs=probs_h, vars=vars_h, active=act), gen.get_state(),
-                )
+                vecs = (x1_hat, r1, r2, p1, p2, m_cov)
+                # a sharded run gathers the M-vectors here, on the main
+                # thread (a collective never runs on the IO thread); the
+                # N-vectors are replicated and taken as they are
+                copy = (stager.copy(vecs) if shard is None
+                        else HostCopy([gather_m(v, shard) for v in vecs[:3]]
+                                      + [v.cpu() for v in vecs[3:]]))
+                if is_writer():
+                    writer.submit(
+                        checkpoint_iteration, cfg, "bin_class", dm, it, copy, names, {},
+                        dict(gam1=gam1_h, tau1=tau1_h, gam2=params[6], alpha1=params[0]),
+                        dict(probs=probs_h, vars=vars_h, active=act), gen.get_state(),
+                    )
+            if shard is not None:
+                iter_collectives.append(shard.collectives() - coll0)
             it_done = it
 
             _log(f"x1_hat NMSE = {nmse if np.isfinite(nmse) else 'n/a (zero previous iterate)'}")
@@ -403,7 +439,7 @@ def infere_bin_class(
 
     act = prior.active.cpu().numpy()
     return ProbitResult(
-        x1_hat_scaled=x1_hat.cpu().numpy().astype(np.float64)[:Mt] / sqrt_n,
+        x1_hat_scaled=gather_m(x1_hat, shard).numpy().astype(np.float64)[:Mt] / sqrt_n,
         iterations_run=it_done,
         gam1=float(gam1),
         tau1=float(tau1),
@@ -411,8 +447,9 @@ def infere_bin_class(
         probs=prior.probs.cpu().numpy()[act],
         vars=prior.vars.cpu().numpy()[act],
         metrics_history=metrics_history,
-        r1_scaled=r1.cpu().numpy().astype(np.float64)[:Mt] / sqrt_n,
+        r1_scaled=gather_m(r1, shard).numpy().astype(np.float64)[:Mt] / sqrt_n,
         iter_seconds=[r.seconds for r in tracer.records],
         setup=setup,
         solver=solver,
+        iter_collectives=iter_collectives,
     )

@@ -10,9 +10,11 @@ Formats (reference: SURVEY §2.4):
 
 The port uses the pure-numpy readers and writers of the JAX package; it
 never loads that package's native extension.  Ranks of a sharded run read
-their own slab of a meth file (`read_meth_bin`'s `start_marker`) and write
-their own slab of an artifact (`write_marker_file`'s `start`), so the bytes
-on disk are those of one process.
+their own slab of a meth file (`read_meth_bin`'s `start_marker`) or of an
+estimate or r1 file (`read_bin_slab`'s and `read_vec_from_text`'s `start`)
+and write their own slab of an artifact (`write_marker_file`'s and
+`write_bin_slab`'s `start`: the dumps, a p-value file), so the bytes on
+disk are those of one process.
 """
 
 from __future__ import annotations

@@ -24,6 +24,11 @@ On the card the statistics of a quantized design come from the hand-written
 kernels: sumx and sumsqx from `row_moments_*` (exact int64 sums of the codes),
 X y_mod from `atx_int8` / `atx_packed4` (f32, y_mod never rounded to bf16),
 and z1 from the `ax_batch_*` pass behind `ax`.
+
+Sharded over markers (`dm.shard`), every p-value is a function of its own
+marker: a rank reads its slab of r1 or of the estimate, and writes its slab
+of the p-value file.  LOO's z1 = A x̂ meets the other ranks in the one
+all_reduce of `ax`, so y_mod is replicated; the row statistics stay local.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from ..ops.bf16 import atx_bf16
 from ..ops.moments import row_moments_int8, row_moments_packed4
 from ..ops.operator import PACKED4_DTYPE, QUANTIZED, DesignMatrix, ax
 from ..ops.packed4 import atx_packed4
+from ..sharding import span
 
 
 def pvals_se(r1: np.ndarray, gam1: float, n: int) -> np.ndarray:
@@ -97,7 +103,9 @@ def _loo_stats(dm: DesignMatrix, y_mod: np.ndarray):
 def pvals_loo(
     ds: Dataset, x1_hat_scaled_up: np.ndarray, standardized: bool = False
 ) -> np.ndarray:
-    """x1_hat_scaled_up: estimate * sqrt(N) (internal scale), length Mt.
+    """x1_hat_scaled_up: estimate * sqrt(N) (internal scale), length Mt, or
+    the rank's slab of it on a sharded design; returns the p-values of
+    those markers.
 
     standardized=False reproduces the reference's raw-marker add-back (Q5,
     src/data.cpp:405); True adds back the standardized column that z1
@@ -106,20 +114,21 @@ def pvals_loo(
     """
     dm = ds.dm
     n = int(dm.n)
-    mt = int(dm.mt)
+    lo, hi = span(int(dm.mt), dm.shard)
+    m = hi - lo  # this design's real markers
 
     xp = torch.zeros(dm.m_pad, dtype=torch.float64)
-    xp[:mt] = torch.as_tensor(np.asarray(x1_hat_scaled_up, dtype=np.float64))
+    xp[:m] = torch.as_tensor(np.asarray(x1_hat_scaled_up, dtype=np.float64))
     z1 = ax(dm, xp.to(device=dm.device, dtype=dm.wd)).cpu().numpy().astype(np.float64)
     y_mod = ds.phen.y - z1
 
-    sumx, sumsqx, xy = (a[:mt] for a in _loo_stats(dm, y_mod))
+    sumx, sumsqx, xy = (a[:m] for a in _loo_stats(dm, y_mod))
     xh = x1_hat_scaled_up / np.sqrt(n)
     if standardized:
         # for a quantized design dm.msig/dm.mave are the code-space folded
         # vectors, so these coefficients are already in code units
-        c = dm.msig.cpu().numpy().astype(np.float64)[:mt] * xh
-        d = c * dm.mave.cpu().numpy().astype(np.float64)[:mt]
+        c = dm.msig.cpu().numpy().astype(np.float64)[:m] * xh
+        d = c * dm.mave.cpu().numpy().astype(np.float64)[:m]
     elif dm.X.dtype in QUANTIZED:
         # raw marker X_j = s_j q_j + z_j: the quirk's raw-unit add-back
         # xh·X_j becomes (xh·s_j)·q_j in code space, plus the constant
@@ -131,11 +140,11 @@ def pvals_loo(
                 "dequantization scale; load the dataset via load_dataset "
                 "(Dataset.qscale) or use --pval-method loo_std"
             )
-        c = xh * np.asarray(ds.qscale, dtype=np.float64)[:mt]
-        d = np.zeros(mt)
+        c = xh * np.asarray(ds.qscale, dtype=np.float64)[lo:hi]  # qscale is global
+        d = np.zeros(m)
     else:
         c = xh
-        d = np.zeros(mt)
+        d = np.zeros(m)
     sum_ymod = float(np.sum(y_mod))
     ss_ymod = float(np.dot(y_mod, y_mod))
 
@@ -150,17 +159,19 @@ def pvals_loo(
 
 
 def run_association_test(ds: Dataset, cfg: RunConfig) -> np.ndarray:
-    mt = int(ds.dm.mt)
+    """The p-value file of cfg.pval_method; returns the p-values this
+    process wrote (its slab on a sharded design)."""
+    lo, hi = span(int(ds.dm.mt), ds.dm.shard)
     n = int(ds.dm.n)
 
     if cfg.pval_method == "se":
         it_str = parse_iteration(cfg.r1_file)
-        r1 = read_bin_slab(cfg.r1_file, mt)
+        r1 = read_bin_slab(cfg.r1_file, hi - lo, lo)
         pvals = pvals_se(r1, cfg.gam1, n)
         out = os.path.join(cfg.out_dir, f"{cfg.out_name}_it_{it_str}_pval_se.bin")
     elif cfg.pval_method in ("loo", "loo_std"):
         it_str = parse_iteration(cfg.estimate_file)
-        x1 = read_bin_slab(cfg.estimate_file, mt) * np.sqrt(float(n))
+        x1 = read_bin_slab(cfg.estimate_file, hi - lo, lo) * np.sqrt(float(n))
         pvals = pvals_loo(ds, x1, standardized=cfg.pval_method == "loo_std")
         out = os.path.join(
             cfg.out_dir, f"{cfg.out_name}_it_{it_str}_pval_{cfg.pval_method}.bin"
@@ -168,5 +179,5 @@ def run_association_test(ds: Dataset, cfg: RunConfig) -> np.ndarray:
     else:
         raise ValueError(f"unknown pval method {cfg.pval_method}")
 
-    write_bin_slab(out, pvals)
+    write_bin_slab(out, pvals, lo)
     return pvals

@@ -8,6 +8,10 @@ Probit (reference src/main_meth_probit.cpp:104-200): confusion matrix of
 Phi(z) >= 0.5 against the 0/1 labels, rows [TP, TN, FP, FN, ACC]; the
 probit test CSV has NO header row (the reference never writes one).  It
 needs no probit engine: only the estimates and the test design.
+
+Sharded over markers (`dm.shard`), each rank reads its slab of every
+estimate; the batched pass's one all_reduce hands every rank the whole z,
+and rank 0 alone writes the CSV.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from ..io.bin_io import read_bin_slab, read_vec_from_text, substitute_iteration
 from ..io.csv_writer import PositionalCSV
 from ..ops.atx_int8 import K_MAX
 from ..ops.operator import ax_batch
+from ..sharding import is_writer, span
 
 # estimates that share one pass over the test design.  The JAX package
 # batches 16 (test_mode.py:37-64); the port's quantized ax_batch kernels take
@@ -33,14 +38,15 @@ from ..ops.operator import ax_batch
 CHUNK = K_MAX
 
 
-def _read_estimate(est_file_it: str, mt: int) -> np.ndarray:
+def _read_estimate(est_file_it: str, count: int, start: int = 0) -> np.ndarray:
+    """Values [start, start + count) of an estimate file."""
     # extension = everything after the basename's FIRST dot (reference
     # main_meth.cpp:151-152, scoped to the filename so dotted dirs work)
     base = os.path.basename(est_file_it)
     ext = base[base.find(".") + 1:]
     if ext == "bin":
-        return read_bin_slab(est_file_it, mt)
-    return read_vec_from_text(est_file_it, mt)
+        return read_bin_slab(est_file_it, count, start)
+    return read_vec_from_text(est_file_it, count, start)
 
 
 def _collect_predictions(ds: Dataset, cfg: RunConfig, chunk: int = CHUNK):
@@ -48,7 +54,7 @@ def _collect_predictions(ds: Dataset, cfg: RunConfig, chunk: int = CHUNK):
     `chunk` estimates to a pass over the test design (multi-RHS ax_batch)
     instead of the reference's one pass per iteration (main_meth.cpp:163-202)."""
     dm = ds.dm
-    mt = int(dm.mt)
+    m_lo, m_hi = span(int(dm.mt), dm.shard)
     scale = np.sqrt(float(cfg.N_test))
 
     lo, hi = cfg.test_iter_range
@@ -62,7 +68,7 @@ def _collect_predictions(ds: Dataset, cfg: RunConfig, chunk: int = CHUNK):
         grp = pending[i:i + chunk]
         cols = np.zeros((dm.m_pad, len(grp)))
         for k, (_, f) in enumerate(grp):
-            x_est = _read_estimate(f, mt)
+            x_est = _read_estimate(f, m_hi - m_lo, m_lo)
             cols[:len(x_est), k] = x_est * scale
         xs = torch.as_tensor(cols).to(device=dm.device, dtype=dm.wd)
         Z = ax_batch(dm, xs).cpu().numpy().astype(np.float64)
@@ -101,9 +107,10 @@ def run_test_probit(ds: Dataset, cfg: RunConfig) -> list[list[float]]:
 
     # probit test csv: rows only, no header (src/main_meth_probit.cpp:106-199)
     path = os.path.join(cfg.out_dir, cfg.out_name + "_test.csv")
-    if os.path.exists(path):
-        os.remove(path)
-    open(path, "wb").close()
+    if is_writer():
+        if os.path.exists(path):
+            os.remove(path)
+        open(path, "wb").close()
     out = PositionalCSV(path, [], create=False)
 
     rows = []

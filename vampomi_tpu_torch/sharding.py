@@ -131,6 +131,11 @@ def is_writer() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
+def span(mt: int, shard: Shard | None) -> tuple[int, int]:
+    """This rank's markers [lo, hi) of Mt: [0, Mt) without a shard."""
+    return (0, mt) if shard is None else (shard.lo, shard.hi)
+
+
 def local_rows(vec, shard: Shard | None):
     """This rank's rows [lo, hi) of a global M-length array (the array
     itself without a shard)."""
