@@ -8,7 +8,8 @@ Phases (each prints its own lines; any failure ends the run non-zero):
   0. device   — a CUDA card must be present; prints nvidia-smi's name and
                 power limit and torch's device name.
   1. build    — builds the fifteen kernel libraries from vampomi_tpu_torch/csrc,
-                one nvcc each, all started together.
+                one nvcc each, and the host IO runtime (host_io.cpp, the
+                host C++ compiler), all started together.
   2. kernel   — each kernel against its plain PyTorch version and against f64
                 at its main-path shape (int8 X of the north star,
                 M = 1,048,576 x N = 10,240, and packed int4 X of
@@ -157,9 +158,36 @@ Phases (each prints its own lines; any failure ends the run non-zero):
                 one launch, each through the CLI's parse_config and run-mode
                 dispatch in one process group: a launch costs more than the
                 commands), against the same commands in one process (the
-                bars of (a)); only --profile-dir is refused, naming
-                ROADMAP.md.  Prints the walls of its two waves of launches
-                and the {"ranks": {...}} line.
+                bars of (a)); --profile-dir over 3 ranks (a Chrome trace a
+                rank; the dumps byte for byte the run's without it).
+                Prints the walls of its two waves of launches and the
+                {"ranks": {...}} line.
+  11. files   — after phase 9, the user's workflow through real files: (a)
+                an f64 .bin of N = 10,240 x M = 262,144 (20 GiB, a quarter
+                of the north star's markers; M halved while the disk with
+                the most free space holds less than 25 GiB) written chunk by
+                chunk from per-chunk seeds (methylation-like values in
+                [0, 1], each marker in its own range), its .phen and true
+                signal planted as phase 5 plants them; the CLI's int8 eigen
+                run (4 iterations, dumps on), test on the same file and
+                association_test --pval-method se, in one process
+                through cli.main (--files-worker), its own peak RSS under
+                8 GiB; the CLI's design on three slabs bitwise
+                build_design's; launches exact; scripts.p_vals' file the
+                SE mode's bytes; the ingest's rate beside the plain numpy
+                reader's on one chunk, and on a 1 GiB slab at 1 to 8
+                ingest threads; an M-vector dump's write by the runtime
+                against a bytes copy and os.pwrite; the int8 codes the
+                fused f32 ingest would change on one slab; (b) two per-chromosome zarr
+                stores of 2,000 x 4,096 (zlib, blosc-lz4) through
+                python -m vampomi_tpu_torch.sim.sim_top_iid (its train .bin
+                the stores' rows), the CLI on its train split and test on
+                its test split; (c) --profile-dir on phase 4's int8 eigen
+                run in a subprocess with a deadline: the trace parses and
+                names the atx_int8 and int8 xtw kernels, as many of each
+                as an exact run launches, the outputs byte for byte the
+                run's without the flag, the card's busy share of the
+                profiled run.  Prints the {"files": {...}} line.
 
 Before the ranks line, a line "[timing] {...}" gives each phase's wall
 seconds (a phase run in several parts, such as 7, summed) and the total.
@@ -189,6 +217,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from typing import Callable, NamedTuple
@@ -443,11 +472,14 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """The kernel libraries (nvcc) and the host IO runtime (the host C++
+    compiler, csrc/host_io.cpp), one compiler process each, all at once."""
     t0 = time.perf_counter()
-    _build.build_all(LIBRARIES)
+    _build.build_all(LIBRARIES + ["host_io"])
     each = ", ".join(f"{n} {s:.1f}s" for n, s in _build.BUILD_SECONDS.items())
-    log(f"[build] {len(LIBRARIES)} libraries from vampomi_tpu_torch/csrc in "
-        f"{time.perf_counter() - t0:.2f}s, in parallel (nvcc until seen done: {each})")
+    log(f"[build] {len(LIBRARIES)} kernel libraries and the host IO runtime from "
+        f"vampomi_tpu_torch/csrc in {time.perf_counter() - t0:.2f}s, in parallel (each "
+        f"compiler until seen done: {each})")
 
 
 def check_kernel(name: str, X: torch.Tensor, V: torch.Tensor, timed: bool) -> dict:
@@ -2298,7 +2330,8 @@ def phase_ranks_cli(dev: str, log_dir: str, n: int = 2_000, m: int = 8_002, iter
     (within rtol); test, association_test (se, loo, loo_std) and predict on
     the one-process linear eigen run's dumps, test and predict with
     --model bin_class on the probit one's (one launch of 3 ranks for the
-    seven, cli_ranks_worker); --profile-dir refused."""
+    seven, cli_ranks_worker); --profile-dir over 3 ranks (a trace a rank,
+    the dumps those of the run without it)."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="vampomi_ranks_cli_") as d:
         fx = simulate_iid(n=n, m=m, lam=0.1, h2=0.8, seed=SEED)
@@ -2337,8 +2370,8 @@ def phase_ranks_cli(dev: str, log_dir: str, n: int = 2_000, m: int = 8_002, iter
     took = time.perf_counter() - t0
     log(f"[ranks] cli: each model's 3-rank checkpoint at iteration {split} resumed to {iters} "
         f"by 3 ranks ({names} files byte-identical to the straight runs) and by one process "
-        f"(within rtol {RANK_RTOL['eigen']}); the run modes of both models over 3 ranks; only "
-        f"--profile-dir refused; {took:.1f}s")
+        f"(within rtol {RANK_RTOL['eigen']}); the run modes of both models over 3 ranks; "
+        f"--profile-dir over 3 ranks: a trace a rank, the dumps byte for byte; {took:.1f}s")
     return dict(cli_seconds=took, resume_byte_identical_files=names)
 
 
@@ -2391,8 +2424,8 @@ def _ranks_cli_runs(d: str, paths: dict, dev: str, log_dir: str, n: int, m: int,
         ck = os.path.join(d, f"part_{model}", "ck.npz")
         parts[model] = (ck, cli3(f"part_{model}", *argv(f"part_{model}", model, "int8", "eigen",
                                                         split, "--checkpoint-file", ck)))
-    refused, lp_refused = cli3("profile", *argv("profile", "linear", "int8", "eigen", 2,
-                                                "--profile-dir", os.path.join(d, "prof")))
+    profiled, lp_profiled = cli3("profile", *argv("profile", "linear", "int8", "eigen", 2,
+                                                  "--profile-dir", os.path.join(d, "prof")))
     t0 = time.perf_counter()
     for t, mo, dt, s, k in runs:
         with engine_log(log_dir, f"ranks_cli_r1_{t}"):
@@ -2402,10 +2435,22 @@ def _ranks_cli_runs(d: str, paths: dict, dev: str, log_dir: str, n: int, m: int,
         wait(p, f"ranks cli 3 ranks {t}", lp)
     for model, (_, (p, lp)) in parts.items():
         wait(p, f"ranks cli {model} checkpoint run", lp)
-    text = wait(refused, "ranks cli --profile-dir", lp_refused, ok=False)
+    wait(profiled, "ranks cli --profile-dir", lp_profiled)
     walls["wave1"] = time.perf_counter() - t0
-    check(refused.returncode != 0 and "ROADMAP.md" in text and "--profile-dir" in text,
-          f"ranks cli: --profile-dir over 3 ranks did not stop naming ROADMAP.md: {text[-2000:]}")
+    # --profile-dir over 3 ranks: a Chrome trace a rank, and the dumps of
+    # the run's 2 iterations those of the 3-rank int8 eigen run, byte for byte
+    traces = sorted(os.listdir(os.path.join(d, "prof")))
+    check([t.split(".")[0] for t in traces] == ["rank0", "rank1", "rank2"],
+          f"ranks cli: --profile-dir over 3 ranks wrote {traces}")
+    for t in traces:
+        with open(os.path.join(d, "prof", t)) as f:
+            check(bool(json.load(f)["traceEvents"]), f"ranks cli: trace {t} is empty")
+    for it in (1, 2):
+        for kind in ("", "r1_"):
+            f = f"r_{kind}it_{it}.bin"
+            check(_bytes(os.path.join(d, "profile", f))
+                  == _bytes(os.path.join(d, "r3_linear_int8_eigen", f)),
+                  f"ranks cli: {f} differs with --profile-dir over 3 ranks")
     for t, mo, dt, s, k in runs:
         for it in range(1, k + 1):
             for kind in ("", "r1_"):
@@ -2525,6 +2570,566 @@ def _ranks_cli_runs(d: str, paths: dict, dev: str, log_dir: str, n: int, m: int,
     return same
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the user's workflow through real files
+
+FILES_N, FILES_M = NS_N, NS_M // 4      # a quarter of the north star's markers
+FILES_ROWS = 8_192                      # rows of the f64 file made from one seed
+FILES_ITERS = 4
+FILES_RSS_GIB = 8.0                     # the CLI process's peak RSS bound
+FILES_SLAB = 1_000                      # rows of each slab held against build_design
+FILES_THREADS_GIB = 1.0                 # f64 GiB of the file streamed at each thread count
+FILES_THREADS = (1, 2, 4, 6, 8)         # ingest threads tried on that slab
+FILES_FREE_GIB = 25.0                   # free disk the full-size file needs
+ZARR_N, ZARR_M = 2_000, 4_096           # one per-chromosome store (samples, markers)
+
+
+def files_dir(m: int) -> tuple[str, int, str]:
+    """A directory on the disk with the most free space, and the marker
+    count that fits there: with less than FILES_FREE_GIB free, M halved
+    until the file and 5 GiB beside it fit; with the cut named, and the
+    free space of each candidate disk and the host's memory logged."""
+    cands = [tempfile.gettempdir(), ROOT]
+    free = {c: shutil.disk_usage(c).free / 2**30 for c in cands}
+    best = max(cands, key=free.get)
+    cut = ""
+    while free[best] < FILES_FREE_GIB and 8 * m * FILES_N / 2**30 + 5.0 > free[best] \
+            and m > FILES_ROWS:
+        m //= 2
+        cut = f"M cut to {m:,} for {free[best]:.1f} GiB free"
+    with open("/proc/meminfo") as f:
+        mem = {ln.split(":")[0]: int(ln.split()[1]) / 2**20 for ln in f}
+    log(f"[files] disk free (GiB): {', '.join(f'{c} {g:.1f}' for c, g in free.items())}; host "
+        f"memory {mem['MemTotal']:.1f} GiB, {mem['MemAvailable']:.1f} available; "
+        f"{cut or 'no cut'}")
+    return tempfile.mkdtemp(prefix="vampomi_files_", dir=best), m, cut
+
+
+def _cached_gib() -> float:
+    with open("/proc/meminfo") as f:
+        return next(int(ln.split()[1]) for ln in f if ln.startswith("Cached:")) / 2**20
+
+
+def write_meth_file(path: str, m: int, dev) -> tuple[float, float]:
+    """The f64 marker-major file of m methylation-like rows x FILES_N:
+    values in [0, 1], each marker uniform in its own range [lo, lo + w),
+    chunk c of FILES_ROWS rows made on the card from its own seed, copied
+    to the host and written by the native runtime while the next is made.
+    Returns (seconds, GiB the page cache grew by)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vampomi_tpu_torch.io import native
+
+    t0, cached0 = time.perf_counter(), _cached_gib()
+    with open(path, "wb"):
+        pass
+    with ThreadPoolExecutor(1) as pool:
+        pending = []
+        for lo in range(0, m, FILES_ROWS):
+            rows = min(m, lo + FILES_ROWS) - lo
+            g = torch.Generator(device=dev).manual_seed(SEED + 200 + lo // FILES_ROWS)
+            band = torch.rand((rows, 2), dtype=torch.float64, device=dev, generator=g)
+            u = torch.rand((rows, FILES_N), dtype=torch.float64, device=dev, generator=g)
+            x = (0.6 * band[:, :1] + (0.05 + 0.35 * band[:, 1:]) * u).cpu().numpy()
+            if len(pending) == 2:
+                pending.pop(0).result()
+            pending.append(pool.submit(native.write_from, path, x, 8 * lo * FILES_N))
+        for f in pending:
+            f.result()
+    return time.perf_counter() - t0, _cached_gib() - cached0
+
+
+def planted_files(path: str, m: int, d: str) -> dict:
+    """The .phen and true signal of a planted problem on the file, as
+    phase 5 plants it (one causal marker per 1,024, h2 = 0.8): y = A beta
+    + e with A the file's standardized rows (f64, from the causal rows
+    alone), scaled as read_phen standardizes it; the prior at the truth."""
+    from vampomi_tpu_torch.io.bin_io import read_meth_bin
+
+    n, causal, h2 = FILES_N, m // 1024, 0.8
+    idx = np.sort(np.random.default_rng(SEED + 3).choice(m, causal, replace=False))
+    beta = np.zeros(m)
+    beta[idx] = np.random.default_rng(SEED).normal(0.0, math.sqrt(h2 / causal), causal)
+    g = np.zeros(n)
+    for j in idx:
+        x = read_meth_bin(path, n, 1, int(j))[0]
+        g += beta[j] * (x - x.mean()) / x.std(ddof=1)
+    y = g + np.random.default_rng(SEED + 1).normal(0.0, math.sqrt(1.0 - h2), n)
+    paths = {"bin": path, "phen": os.path.join(d, "f.phen"), "ts": os.path.join(d, "f_ts.bin")}
+    with open(paths["phen"], "w") as f:
+        f.writelines(f"{i} {i} {v!r}\n" for i, v in enumerate(y.tolist()))
+    beta.tofile(paths["ts"])
+    paths["prior"] = dict(probs=f"{1.0 - causal / m!r},{causal / m!r}",
+                          vars=f"0.0,{h2 / causal!r}")
+    return paths
+
+
+def files_worker(spec_path: str) -> int:
+    """The process of phase 11 (a) that runs the CLI's commands of
+    spec["argvs"] one after another through the CLI's entry point
+    (cli.main: its parse and run-mode dispatch), so that its peak RSS is
+    theirs alone.  Each command's dataset load is timed, the first one's
+    design is kept on three slabs of rows for the parent, and each
+    command's kernel launches are counted from 0."""
+    import vampomi_tpu_torch.dataset as dataset
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    real, loads = dataset.load_dataset, []
+    # the CPU when the phase is rehearsed at a toy size without a card
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+
+    def load(*a, **k):
+        sync()
+        t0 = time.perf_counter()
+        ds = real(*a, **k)
+        sync()
+        loads.append(time.perf_counter() - t0)
+        steps[f"load{len(loads)}"] = rss()
+        if len(loads) == 1:
+            slabs = {}
+            for i, (lo, hi) in enumerate(spec["slabs"]):
+                slabs[f"X{i}"] = ds.dm.X[lo:hi].cpu().numpy()
+                for key in ("mave", "msig"):
+                    slabs[f"{key}{i}"] = getattr(ds.dm, key)[lo:hi].cpu().numpy()
+                slabs[f"qscale{i}"] = ds.qscale[lo:hi]
+            np.savez(spec["slabs_out"], **slabs)
+        return ds
+
+    dataset.load_dataset = load
+    # this process's own peak RSS: VmHWM of the address space its exec
+    # made (getrusage's ru_maxrss keeps the high-water mark of the parent's
+    # pages that the fork copied, GiBs at this point of the script), and
+    # the largest VmRSS a 20 Hz sampler saw, for a kernel without VmHWM
+    sampled = [0]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.05):
+            sampled[0] = max(sampled[0], _status_kib("VmRSS") or 0)
+
+    threading.Thread(target=sample, daemon=True).start()
+
+    def rss() -> float:  # GiB
+        sampled[0] = max(sampled[0], _status_kib("VmRSS") or 0)
+        return max(sampled[0], _status_kib("VmHWM") or 0) / 2**20
+
+    steps = {"imports": rss()}
+    if torch.cuda.is_available():
+        torch.zeros(1, device="cuda")
+        steps["cuda_context"] = rss()
+    counts = []
+    for i, argv in enumerate(spec["argvs"]):
+        if argv[0] == "GAM1_FROM":  # --gam1 of the params CSV's row at an iteration
+            gam1 = read_positional_csv(argv[1])[int(argv[2]) - 1][2]
+            argv = [repr(gam1) if a == "GAM1" else a for a in argv[3:]]
+        reset_launches()
+        with engine_log(spec["log_dir"], f"files_{i}_{argv[1]}"):
+            check(cli.main(argv) == 0, f"files: {argv[:2]} returned non-zero")
+        sync()
+        counts.append({k: c for k, c in launches().items() if c})
+        steps[f"{i}_{argv[1]}"] = rss()
+    done.set()
+    with open(spec["result"], "w") as f:
+        json.dump(dict(loads=loads, launches=counts, rss=steps,
+                       rss_from="VmHWM" if _status_kib("VmHWM") else "VmRSS sampled at 20 Hz"),
+                  f)
+    return 0
+
+
+def _status_kib(key: str) -> int | None:
+    """A kB field of /proc/self/status (None where the kernel has none)."""
+    with open("/proc/self/status") as f:
+        for ln in f:
+            if ln.startswith(key + ":"):
+                return int(ln.split()[1])
+    return None
+
+
+def run_measured(args: list[str], log_path: str, deadline: float) -> tuple[int, float]:
+    """`python ARGS` from the repository's root, its output to log_path:
+    (exit code, wall seconds).  Killed past `deadline` seconds."""
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        p = subprocess.Popen([sys.executable, *args], cwd=ROOT, stdout=f,
+                             stderr=subprocess.STDOUT)
+    try:
+        p.wait(timeout=deadline)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.wait()
+        fail(f"{args[:3]}: killed after {deadline:.0f} s (log {log_path})")
+    return p.returncode, time.perf_counter() - t0
+
+
+def phase_files(dev: str, log_dir: str) -> dict:
+    """Phase 11: (a) the CLI through an f64 file of FILES_N x FILES_M
+    written chunk by chunk, (b) the production input path from
+    per-chromosome zarr stores, (c) --profile-dir on phase 4's run."""
+    d, m, cut = files_dir(FILES_M)
+    try:
+        rec = files_workflow(dev, d, m, log_dir)
+        rec["cut"] = cut or "none"
+        rec.update(files_zarr(dev, d, log_dir))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    rec.update(files_profile(dev, log_dir))
+    return rec
+
+
+def files_workflow(dev: str, d: str, m: int, log_dir: str) -> dict:
+    """Phase 11 (a): the f64 file, its planted .phen and true signal; the
+    CLI's int8 eigen run (FILES_ITERS iterations, dumps on), test on the
+    same file and association_test --pval-method se, one after another in
+    one process (files_worker) whose peak RSS must stay under
+    FILES_RSS_GIB; then scripts.p_vals on the run's r1 and params CSV
+    (byte for byte the SE mode's file).  The CLI's design on three slabs
+    (the first rows, the middle, the ragged last) against build_design of
+    the same rows bitwise; the launches of atx_int8 and ax_batch_int8
+    exact; the ingest's rate beside the plain numpy reader's on one chunk;
+    the ingest's rate at each of FILES_THREADS threads on a slab of
+    FILES_THREADS_GIB; an M-vector dump written by the runtime's pwrite
+    against a bytes copy and os.pwrite (the JAX package's numpy path);
+    the int8 codes the fused f32 ingest would change on one slab."""
+    from vampomi_tpu_torch import dataset
+    from vampomi_tpu_torch.io import native
+    from vampomi_tpu_torch.io.bin_io import read_meth_bin, read_meth_bin_plain
+    from vampomi_tpu_torch.ops.operator import quantize_markers
+    from vampomi_tpu_torch.scripts import p_vals
+
+    n, k = FILES_N, FILES_ITERS
+    path = os.path.join(d, "f.bin")
+    free = shutil.disk_usage(d).free / 2**30
+    write_s, cached = write_meth_file(path, m, dev)
+    gib = os.path.getsize(path) / 2**30
+    paths = planted_files(path, m, d)
+    log(f"[files] {m:,} x {n:,} f64 file ({gib:.2f} GiB; {free:.1f} GiB free in {d}) written "
+        f"in {write_s:.1f}s ({gib / write_s:.2f} GiB/s); /proc/meminfo's Cached grew by "
+        f"{cached:.1f} GiB meanwhile")
+    out = os.path.join(d, "out")
+    os.makedirs(out)
+    common = ["--Mt", str(m), "--out-dir", out, "--compute-dtype", "int8", "--device", dev]
+    infere = ["--run-mode", "infere", "--meth-file", path, "--phen-file", paths["phen"],
+              "--true-signal-file", paths["ts"], "--N", str(n), "--out-name", "f",
+              "--iterations", str(k), "--stop-criteria-thr", "0", "--h2", "0.8", "--learn-vars",
+              "0", "--learn-prior-delay", str(k), "--probs", paths["prior"]["probs"],
+              "--vars", paths["prior"]["vars"], "--lmmse-solver", "eigen", "--seed", str(SEED)]
+    test = ["--run-mode", "test", "--meth-file-test", path, "--phen-file-test", paths["phen"],
+            "--N-test", str(n), "--estimate-file", os.path.join(out, "f_it_1.bin"),
+            "--test-iter-range", f"1,{k}", "--out-name", "f"]
+    se = ["--run-mode", "association_test", "--pval-method", "se", "--meth-file", path,
+          "--phen-file", paths["phen"], "--N", str(n), "--r1-file",
+          os.path.join(out, f"f_r1_it_{k}.bin"), "--gam1", "GAM1", "--out-name", "se"]
+    slabs = [(0, FILES_SLAB), (m // 2 - FILES_SLAB // 2, m // 2 + FILES_SLAB // 2),
+             (m - FILES_SLAB, m)]
+    spec = dict(argvs=[infere + common, test + common, se + common], slabs=slabs,
+                slabs_out=os.path.join(d, "slabs.npz"), result=os.path.join(d, "res.json"),
+                log_dir=log_dir)
+    # the SE mode reads gam1 from the run's params CSV: the worker runs it
+    # after the run, so it substitutes the value there
+    spec["argvs"][2] = ["GAM1_FROM", os.path.join(out, "f_params.csv"), str(k)] + spec["argvs"][2]
+    with open(os.path.join(d, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    rc, wall = run_measured([os.path.join(ROOT, "chip_smoke.py"), "--files-worker",
+                             os.path.join(d, "spec.json")],
+                            os.path.join(log_dir, "files_worker.log"), 600)
+    check(rc == 0, f"files: the CLI worker exited {rc} (log files_worker.log)")
+    with open(spec["result"]) as f:
+        res = json.load(f)
+    rss = max(res["rss"].values())
+    check(rss < FILES_RSS_GIB, f"files: the CLI process peaked at {rss:.2f} GiB RSS, "
+                               f"bound {FILES_RSS_GIB}")
+    # the launches: an exact eigen run's, test's one pass of its k estimates,
+    # SE none (a wrapper counts kernel launches, so none off the card, where
+    # the phase is rehearsed)
+    want = [exact_launches("int8", "eigen", k, []), {"ax_batch_int8": 1}, {}]
+    if not dev.startswith("cuda"):
+        want = [{}, {}, {}]
+    check(res["launches"] == want, f"files: infere, test and SE launched {res['launches']}, "
+                                   f"want {want}")
+    # the CLI's design on three slabs against build_design of the same rows
+    with np.load(spec["slabs_out"]) as z:
+        for i, (lo, hi) in enumerate(slabs):
+            q = {}
+            want_dm = build_design(read_meth_bin(path, n, hi - lo, lo), torch.int8, "cpu",
+                                   quant_out=q)
+            same = (np.array_equal(z[f"X{i}"], want_dm.X.numpy())
+                    and z[f"qscale{i}"].tobytes() == q["scale"].tobytes()
+                    and all(z[f"{key}{i}"].tobytes() == getattr(want_dm, key).numpy().tobytes()
+                            for key in ("mave", "msig")))
+            check(same, f"files: the CLI's design differs from build_design on rows [{lo}, {hi})")
+    # outputs: finite dumps and CSVs; the x1 correlation recovers signal
+    metrics = np.asarray(read_positional_csv(os.path.join(out, "f_metrics.csv")))
+    check(metrics.shape[0] == k and np.all(np.isfinite(metrics)), "files: bad metrics CSV")
+    x1c = metrics[:, 2]
+    for i in range(1, k + 1):
+        for kind in ("", "r1_"):
+            check(bool(np.all(np.isfinite(read_bin_slab(os.path.join(out, f"f_{kind}it_{i}.bin"),
+                                                         m)))), f"files: {kind}it_{i} not finite")
+    check(x1c.max() > 0.3, f"files: x1 correlation {x1c} never passed 0.3")
+    rows_t = np.asarray(read_positional_csv(os.path.join(out, "f_test.csv")))
+    check(rows_t.shape == (k, 3) and np.all(np.isfinite(rows_t)), "files: bad test CSV")
+    # scripts.p_vals on the run's r1 and params CSV: the SE mode's bytes
+    with contextlib.redirect_stdout(open(os.path.join(log_dir, "files_p_vals.log"), "w")):
+        p_vals.main(["--out-name", "pv", "--csv-params", os.path.join(out, "f_params.csv"),
+                     "--r1-file", os.path.join(out, f"f_r1_it_{k}.bin"), "--it", str(k),
+                     "--M", str(m), "--N", str(n)])
+    check(_bytes(os.path.join(out, "pv.bin")) == _bytes(os.path.join(out, f"se_it_{k}_pval_se.bin")),
+          "files: scripts.p_vals' file differs from the SE mode's")
+    # the ingest against the plain numpy reader, on one chunk
+    rows = max(1, dataset.CHUNK_BYTES // (8 * n))
+    lo = m // 3
+    t0 = time.perf_counter()
+    a = read_meth_bin(path, n, rows, lo)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = np.array(read_meth_bin_plain(path, n, rows, lo))
+    t_plain = time.perf_counter() - t0
+    check(np.array_equal(a, b), "files: the runtime's read differs from numpy's")
+    t_rows = min(m, int(FILES_THREADS_GIB * 2**30) // (8 * n))
+    by_threads = ingest_by_threads(path, n, t_rows, dev)
+    dump_ms = dump_write_ms(os.path.join(d, "dump"))
+    # the codes the fused f32 ingest (JAX's with its extension) would change
+    lo = slabs[1][0]
+    x32 = np.empty((FILES_SLAB, n), dtype=np.float32)
+    native.read_f64_as_f32(path, x32, 8 * lo * n)
+    ties = int((quantize_markers(x32)[0] != quantize_markers(read_meth_bin(path, n, FILES_SLAB,
+                                                                           lo))[0]).sum())
+    secs = [json.loads(ln)["seconds"] for ln in open(os.path.join(out, "f_trace.jsonl"))]
+    ingest = [round(t, 2) for t in res["loads"]]
+    rate = [round(8 * m * n / t / 1e9, 3) for t in res["loads"]]
+    chunk_mb = 8 * rows * n / 1e6
+    log(f"[files] CLI infere, test and association_test in one process: {wall:.1f}s, peak RSS "
+        f"{rss:.2f} GiB (bound {FILES_RSS_GIB}); ingest seconds {ingest} ({rate} GB/s of "
+        f"file); one chunk of {rows} rows ({chunk_mb:.1f} MB): runtime {1e3 * t_native:.1f} ms "
+        f"({chunk_mb / 1e3 / t_native:.2f} GB/s), numpy {1e3 * t_plain:.1f} ms "
+        f"({chunk_mb / 1e3 / t_plain:.2f} GB/s); the ingest of its first {t_rows:,} rows "
+        f"({8 * t_rows * n / 2**30:.2f} GiB) at each thread count (GB/s of file) {by_threads}; an M = {NS_M:,} f64 dump written in "
+        f"{dump_ms['runtime']:.2f} ms by the runtime's pwrite, {dump_ms['bytes_pwrite']:.2f} ms "
+        f"by a bytes copy and os.pwrite (medians of 5 in turns); iteration seconds "
+        f"{[round(t, 4) for t in secs]}; x1 corr {np.round(x1c, 4).tolist()}; "
+        f"test R2 {np.round(rows_t[:, 1], 4).tolist()}; launches {res['launches']}; the three "
+        f"slabs bitwise build_design's; p_vals' file the SE mode's bytes; f32-tie codes of "
+        f"{FILES_SLAB} x {n} on rows [{lo}, {lo + FILES_SLAB}): {ties}; peak RSS (GiB, "
+        f"{res['rss_from']}) after each step {({key: round(v, 2) for key, v in res['rss'].items()})}")
+    return dict(files_m=m, files_gib=gib, write_s=write_s, cli_s=wall, peak_rss_gib=rss,
+                rss_steps=res["rss"], rss_from=res["rss_from"], ingest_s=res["loads"],
+                ingest_gbps=rate, ingest_gbps_by_threads=by_threads,
+                chunk_native_ms=1e3 * t_native, chunk_plain_ms=1e3 * t_plain,
+                dump_write_ms=dump_ms, iter_s=secs, f32_tie_codes=ties)
+
+
+def ingest_by_threads(path: str, n: int, rows: int, dev: str) -> dict:
+    """GB/s of file of the streamed int8 ingest of the file's first `rows`
+    markers with dataset.INGEST_THREADS set to each of FILES_THREADS in
+    turn (restored after), the design checked equal to the first's."""
+    from vampomi_tpu_torch import dataset
+
+    sync = torch.cuda.synchronize if dev.startswith("cuda") else (lambda: None)
+    keep, first, rate = dataset.INGEST_THREADS, None, {}
+    try:
+        for t in FILES_THREADS:
+            dataset.INGEST_THREADS = t
+            sync()
+            t0 = time.perf_counter()
+            dm, _ = dataset.stream_design(path, n, rows, 0, torch.int8, torch.device(dev))
+            sync()
+            rate[t] = round(8 * rows * n / (time.perf_counter() - t0) / 1e9, 3)
+            if first is None:
+                first = dm.X
+            else:
+                check(torch.equal(dm.X, first), f"files: the ingest at {t} threads differs")
+    finally:
+        dataset.INGEST_THREADS = keep
+    return rate
+
+
+def dump_write_ms(path: str, reps: int = 5) -> dict:
+    """ms to write an f64 M-vector of the north star (NS_M markers) by
+    write_bin_slab (the runtime's pwrite from the array's memory) and by a
+    bytes copy and os.pwrite (the JAX package's numpy path), in turns:
+    medians of `reps`; the two files checked equal."""
+    from vampomi_tpu_torch.io.bin_io import write_bin_slab
+
+    vec = np.random.default_rng(SEED).normal(size=NS_M)
+
+    def bytes_pwrite(p, v):
+        fd = os.open(p, os.O_CREAT | os.O_WRONLY, 0o644)
+        try:
+            os.pwrite(fd, np.ascontiguousarray(v, dtype="<f8").tobytes(), 0)
+        finally:
+            os.close(fd)
+
+    ms = {"runtime": [], "bytes_pwrite": []}
+    for _ in range(reps):
+        for key, write in (("runtime", write_bin_slab), ("bytes_pwrite", bytes_pwrite)):
+            t0 = time.perf_counter()
+            write(f"{path}.{key}", vec)
+            ms[key].append(1e3 * (time.perf_counter() - t0))
+    check(_bytes(f"{path}.runtime") == _bytes(f"{path}.bytes_pwrite"),
+          "files: the dump writers' files differ")
+    return {key: float(np.median(v)) for key, v in ms.items()}
+
+
+def files_zarr(dev: str, d: str, log_dir: str) -> dict:
+    """Phase 11 (b): two per-chromosome stores of ZARR_N x ZARR_M written by
+    the port's zarr_lite, one zlib and one of Blosc/LZ4 frames; sim_top_iid
+    on them (its train .bin must be the stores' rows, masked and
+    transposed); then the CLI (int8, eigen) on its train split and test on
+    its test split."""
+    from vampomi_tpu_torch.io.blosc_lite import blosc_compress_lz4
+    from vampomi_tpu_torch.io.bin_io import read_meth_bin
+    from vampomi_tpu_torch.io.zarr_lite import open_array, save_array
+
+    t0 = time.perf_counter()
+    stores, out = os.path.join(d, "stores"), os.path.join(d, "sim")
+    os.makedirs(stores)
+    os.makedirs(out)
+    rng = np.random.default_rng(SEED + 300)
+    chroms = [rng.random((ZARR_N, ZARR_M)) for _ in range(2)]
+    save_array(os.path.join(stores, "chr01"), chroms[0], chunks=(ZARR_N, 1024), compressor="zlib")
+    p = os.path.join(stores, "chr02")
+    os.makedirs(p)
+    with open(os.path.join(p, ".zarray"), "w") as f:
+        json.dump(dict(zarr_format=2, shape=[ZARR_N, ZARR_M], chunks=[ZARR_N, 1024], dtype="<f8",
+                       compressor={"id": "blosc", "cname": "lz4", "clevel": 5, "shuffle": 1,
+                                   "blocksize": 0},
+                       fill_value=0.0, order="C", filters=None), f)
+    for c in range(ZARR_M // 1024):
+        block = np.ascontiguousarray(chroms[1][:, c * 1024:(c + 1) * 1024]).astype("<f8")
+        with open(os.path.join(p, f"0.{c}"), "wb") as f:
+            f.write(blosc_compress_lz4(block.tobytes(), typesize=8))
+    X = np.concatenate([np.asarray(open_array(os.path.join(stores, s))) for s in ("chr01", "chr02")],
+                       axis=1)
+    check(np.array_equal(X, np.concatenate(chroms, axis=1)), "zarr: the stores do not read back")
+    m = 2 * ZARR_M
+    rc, wall = run_measured(["-m", "vampomi_tpu_torch.sim.sim_top_iid", "--zarr", stores,
+                                "--out", out, "--dataset", "z", "-M", str(m), "-N", str(ZARR_N),
+                                "--seed", str(SEED)], os.path.join(log_dir, "files_sim.log"), 300)
+    check(rc == 0, "zarr: sim_top_iid exited non-zero (log files_sim.log)")
+    name = "h2_80_lam_1_run_0"
+    msk = np.loadtxt(os.path.join(out, f"z_sim_{name}.msk")).astype(bool)
+    n_tr, n_te = int(msk.sum()), int((~msk).sum())
+    train = os.path.join(out, f"z_train_sim_{name}")
+    test = os.path.join(out, f"z_test_sim_{name}")
+    check(np.array_equal(read_meth_bin(train + ".bin", n_tr, m), X[msk].T),
+          "zarr: sim_top_iid's train .bin is not the stores' rows, masked and transposed")
+    runs = os.path.join(out, "runs")
+    os.makedirs(runs)
+    common = ["--Mt", str(m), "--out-dir", runs, "--compute-dtype", "int8", "--device", dev]
+    with engine_log(log_dir, "files_zarr_infere"):
+        check(cli.main(["--run-mode", "infere", "--meth-file", train + ".bin", "--phen-file",
+                        train + ".phen", "--true-signal-file",
+                        os.path.join(out, f"z_sim_{name}_beta_true.bin"), "--N", str(n_tr),
+                        "--out-name", "z", "--iterations", "4", "--stop-criteria-thr", "0",
+                        "--h2", "0.8", "--probs", "0.9,0.07,0.03", "--vars", "0.0,0.001,0.01",
+                        "--lmmse-solver", "eigen"] + common) == 0, "zarr: CLI infere")
+    with engine_log(log_dir, "files_zarr_test"):
+        check(cli.main(["--run-mode", "test", "--meth-file-test", test + ".bin",
+                        "--phen-file-test", test + ".phen", "--N-test", str(n_te),
+                        "--estimate-file", os.path.join(runs, "z_it_1.bin"),
+                        "--test-iter-range", "1,4", "--out-name", "z"] + common) == 0,
+              "zarr: CLI test")
+    x1 = [r[2] for r in read_positional_csv(os.path.join(runs, "z_metrics.csv"))]
+    rows_t = np.asarray(read_positional_csv(os.path.join(runs, "z_test.csv")))
+    check(len(x1) == 4 and np.all(np.isfinite(x1)) and rows_t.shape == (4, 3)
+          and np.all(np.isfinite(rows_t)), "zarr: bad CSVs")
+    took = time.perf_counter() - t0
+    log(f"[files] zarr: 2 stores of {ZARR_N:,} x {ZARR_M:,} (zlib, blosc-lz4) -> sim_top_iid "
+        f"({wall:.1f}s; train {n_tr} x {m}, test {n_te}; the train .bin the stores' rows) -> CLI "
+        f"int8 eigen on the train split (x1 corr {np.round(x1, 4).tolist()}) and test on the "
+        f"test split (R2 {np.round(rows_t[:, 1], 4).tolist()}); {took:.1f}s")
+    return dict(zarr_s=took)
+
+
+def profile_trace(trace_dir: str) -> tuple[list, int, int]:
+    """The events of the one Chrome trace --profile-dir wrote into
+    trace_dir, and the launches it names of atx_int8.cu's kernel and of
+    ax_batch_int8.cu's (xtw.cuh on int8 codes)."""
+    traces = os.listdir(trace_dir)
+    check(len(traces) == 1 and traces[0].startswith("rank0.")
+          and traces[0].endswith(".pt.trace.json"), f"profile: traces {traces}")
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return (events, sum("atx_int8_kernel" in k for k in kern),
+            sum("xtw_kernel" in k and "ByteCodes<1>" in k for k in kern))
+
+
+def device_busy(events: list) -> tuple[float, float]:
+    """(ms the card ran a kernel, copy or set in the trace, ms from its
+    first event to its last): the union of the device's intervals, so
+    overlapping streams count once."""
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    timed = [e for e in events if e.get("ph") == "X"]
+    span = max(e["ts"] + e.get("dur", 0) for e in timed) - min(e["ts"] for e in timed)
+    return busy / 1e3, span / 1e3
+
+
+def files_profile(dev: str, log_dir: str, n: int = 2_000, m: int = 8_000, iters: int = 8) -> dict:
+    """Phase 11 (c): phase 4's int8 eigen CLI run (its fixture, seed and
+    flags) here, then with --profile-dir in a subprocess with a deadline:
+    the trace parses as JSON and names the kernels of atx_int8.cu and
+    ax_batch_int8.cu (xtw.cuh on int8 codes), and every output file is the
+    run's without the flag, byte for byte (the trace.jsonl telemetry
+    without its walls and rates); the card's busy share of the trace."""
+    with tempfile.TemporaryDirectory(prefix="vampomi_prof_") as d:
+        fx = simulate_iid(n=n, m=m, lam=0.1, h2=0.8, seed=SEED)
+        paths = write_fixture(fx, d, "ex")
+        for sub in ("plain", "prof"):
+            os.makedirs(os.path.join(d, sub))
+
+        def argv(sub):
+            return ["--run-mode", "infere", "--model", "linear", "--meth-file", paths["bin"],
+                    "--phen-file", paths["phen"], "--true-signal-file", paths["ts"], "--N",
+                    str(n), "--Mt", str(m), "--out-dir", os.path.join(d, sub), "--out-name", "r",
+                    "--iterations", str(iters), "--stop-criteria-thr", "0", "--h2", "0.8",
+                    "--probs", "0.9,0.07,0.03", "--vars", "0.0,0.001,0.01", "--device", dev,
+                    "--compute-dtype", "int8", "--lmmse-solver", "eigen"]
+
+        t0 = time.perf_counter()
+        with engine_log(log_dir, "files_profile_plain"):
+            check(cli.main(argv("plain")) == 0, "profile: the run without the flag")
+        plain_s = time.perf_counter() - t0
+        trace_dir = os.path.join(d, "trace")
+        rc, prof_s = run_measured(["-m", "vampomi_tpu_torch.cli", *argv("prof"),
+                                      "--profile-dir", trace_dir],
+                                     os.path.join(log_dir, "files_profile.log"), 300)
+        check(rc == 0, "profile: --profile-dir exited non-zero (log files_profile.log)")
+        events, atx, xtw = profile_trace(trace_dir)
+        busy_ms, span_ms = device_busy(events)
+        kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+        want = (iters + 1, iters) if dev.startswith("cuda") else (0, 0)  # no card: no kernels
+        check((atx, xtw) == want and any(e.get("name", "").startswith("aten::") for e in events),
+              f"profile: the trace holds {atx} atx_int8 and {xtw} int8 xtw kernels, want {want}")
+        files = sorted(os.listdir(os.path.join(d, "plain")))
+        check(files == sorted(os.listdir(os.path.join(d, "prof"))), "profile: other files")
+        for f in files:
+            a, b = (_bytes(os.path.join(d, s, f)) for s in ("plain", "prof"))
+            if f.endswith("_trace.jsonl"):
+                a, b = ([{key: v for key, v in json.loads(ln).items()
+                          if key not in ("seconds", "gbps")} for ln in x.decode().splitlines()]
+                        for x in (a, b))
+            check(a == b, f"profile: {f} differs with --profile-dir")
+        size = sum(os.path.getsize(os.path.join(trace_dir, t)) for t in os.listdir(trace_dir)) / 1e6
+        it_ms = [1e3 * float(np.median([json.loads(ln)["seconds"] for ln in open(
+            os.path.join(d, sub, "r_trace.jsonl"))][1:])) for sub in ("plain", "prof")]
+    log(f"[files] --profile-dir on phase 4's int8 eigen run ({iters} iterations): {prof_s:.1f}s "
+        f"in a subprocess (its start and CUDA context included) against {plain_s:.1f}s in this "
+        f"process without it; an iteration {it_ms[1]:.2f} ms profiled against {it_ms[0]:.2f} ms "
+        f"(medians of iterations 2..{iters}); trace {size:.1f} MB, "
+        f"{len(events)} events, {len(kernels)} kernel names, atx_int8 {atx} and the int8 xtw "
+        f"{xtw} launches; the card busy {busy_ms:.1f} of the trace's {span_ms:.1f} ms; "
+        f"{len(files)} output files byte for byte the run's without the flag")
+    return dict(profile_s=prof_s, profile_plain_s=plain_s, profile_iter_ms=it_ms[1],
+                plain_iter_ms=it_ms[0], trace_mb=size, busy_ms=busy_ms, span_ms=span_ms)
+
+
 def main_dumps(out_dir: str, dtype: str, solver: str, k: int) -> tuple[str, str, float]:
     """The last iteration's estimate and r1 dumps of a main-path run, and the
     gam1 its params CSV pairs with that r1."""
@@ -2543,7 +3148,10 @@ def main(argv=None) -> int:
                         "phase 7: bitwise, and timed in turns")
     p.add_argument("--ranks-worker", default="", metavar="SPEC", help=argparse.SUPPRESS)
     p.add_argument("--cli-ranks", default="", metavar="SPEC", help=argparse.SUPPRESS)
+    p.add_argument("--files-worker", default="", metavar="SPEC", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    if args.files_worker:  # the CLI process of phase 11 (a)
+        return files_worker(args.files_worker)
     if args.ranks_worker:  # one process of phase 10, started by phase 10
         return ranks_worker(args.ranks_worker)
     if args.cli_ranks:  # one rank of phase 10 (b)'s run modes
@@ -2637,6 +3245,8 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         with timed("9_doctor"):
             phase_doctor()
+        with timed("11_files"):
+            files = phase_files(dev, log_dir)
         with timed("10a_ranks"):
             ranks = phase_ranks_main(dev, log_dir, out_dir)
         with timed("10b_ranks_cli"):
@@ -2653,6 +3263,7 @@ def main(argv=None) -> int:
                for name, k in KERNELS.items()]
     print("[timing] " + json.dumps(timing), flush=True)
     print(json.dumps({"ranks": dict(card=smi, **ranks)}))
+    print(json.dumps({"files": dict(card=smi, **files)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,7 @@ setup(
     version="0.1.0",
     packages=find_packages(include=["vampomi_tpu", "vampomi_tpu.*",
                                     "vampomi_tpu_torch", "vampomi_tpu_torch.*"]),
-    package_data={"vampomi_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    package_data={"vampomi_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "csrc/*.cpp"]},
     ext_modules=[
         Extension(
             "vampomi_tpu._native",

@@ -124,20 +124,16 @@ UNPORTED = [
 
 @pytest.mark.parametrize("extra", UNPORTED, ids=lambda a: "".join(a).lstrip("-"))
 def test_cli_unported_modes_and_flags_exit(tmp_path, extra):
-    """--profile-dir still exits naming ROADMAP.md before any work; the
-    flags the port runs now (checkpoints, the eigen cache, bf16) parse into
-    the run's configuration instead."""
+    """The flags that were once refused (checkpoints, the eigen cache, bf16,
+    and --profile-dir, the last of them) parse into the run's configuration
+    now, and parsing does no work."""
     argv = ["--meth-file", str(tmp_path / "x.bin"), "--phen-file", str(tmp_path / "x.phen"),
             "--N", "10", "--Mt", "10", "--device", "cpu", "--out-dir", str(tmp_path)]
-    if extra[0] == "--profile-dir":
-        with pytest.raises(SystemExit, match="ROADMAP.md"):
-            tcli_main(argv + extra)
-    else:
-        cfg = parse_config(argv + extra)
-        field = extra[0].lstrip("-").replace("-", "_")
-        assert getattr(cfg, field) == extra[1]
-        if field == "compute_dtype":
-            assert cfg.resolved_compute_dtype() == torch.bfloat16
+    cfg = parse_config(argv + extra)
+    field = extra[0].lstrip("-").replace("-", "_")
+    assert getattr(cfg, field) == extra[1]
+    if field == "compute_dtype":
+        assert cfg.resolved_compute_dtype() == torch.bfloat16
     assert not os.listdir(tmp_path)
 
 

@@ -34,7 +34,11 @@ import vampomi_tpu_torch.utils.mathx, vampomi_tpu_torch.prior.marginal
 import vampomi_tpu_torch.gibbs.__main__, vampomi_tpu_torch.ops.gibbs_block
 import vampomi_tpu_torch.scripts.conf_gibbs_init, vampomi_tpu_torch.scripts.pip
 import vampomi_tpu_torch.engine.checkpoint, vampomi_tpu_torch.doctor, vampomi_tpu_torch.ops.bf16
-import vampomi_tpu_torch.sharding
+import vampomi_tpu_torch.sharding, vampomi_tpu_torch.io.native, vampomi_tpu_torch.io.zarr_lite
+import vampomi_tpu_torch.io.blosc_lite, vampomi_tpu_torch.sim.sim_top_iid
+import vampomi_tpu_torch.scripts.p_vals, vampomi_tpu_torch.scripts.metrics
+import vampomi_tpu_torch.scripts.roc, vampomi_tpu_torch.scripts.r2
+import vampomi_tpu_torch.scripts.manhattan
 state1 = (str(torch.get_default_dtype()), torch.backends.cuda.matmul.allow_tf32,
           torch.get_float32_matmul_precision())
 added = sorted(set(sys.modules) - before)
@@ -58,7 +62,9 @@ def test_importing_the_port_pulls_in_no_jax():
                 "modes.predict", "engine.probit", "glm.probit", "utils.mathx",
                 "prior.marginal", "gibbs.sampler", "gibbs.runner", "ops.gibbs_block",
                 "scripts.conf_gibbs_init", "scripts.pip", "engine.checkpoint", "doctor",
-                "ops.bf16", "sharding"):
+                "ops.bf16", "sharding", "io.native", "io.zarr_lite", "io.blosc_lite",
+                "sim.sim_top_iid", "scripts.p_vals", "scripts.metrics", "scripts.roc",
+                "scripts.r2", "scripts.manhattan"):
         assert f"vampomi_tpu_torch.{mod}" in res["added"], mod
     assert res["same_state"], "importing the port changed global torch state"
 

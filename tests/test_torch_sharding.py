@@ -159,19 +159,20 @@ def test_padded_jax_checkpoint_is_cut_to_mt(padded_jax):
     (["--model", "bin_class"], True), (["--run-mode", "test"], True),
     (["--run-mode", "predict", "--model", "bin_class"], True),
     (["--run-mode", "association_test", "--pval-method", "loo"], True),
-    ([], True), (["--profile-dir", "prof"], False)])
+    ([], True), (["--profile-dir", "prof"], True)])
 def test_cli_refuses_what_ranks_do_not_run(monkeypatch, argv, ok):
-    """Over ranks every model and run mode runs; only --profile-dir is
-    refused, naming ROADMAP.md, on any number of ranks."""
+    """Over ranks every model, run mode and flag runs on any number of
+    ranks: --profile-dir, the last flag refused, parses now too."""
     monkeypatch.setenv("VAMPOMI_DISTRIBUTED", "1")
     base = ["--meth-file", "x.bin", "--device", "cpu"]
     for world in ("2", "1"):
         monkeypatch.setenv("WORLD_SIZE", world)
         if ok:
             cfg = cli.parse_config(base + argv)
-            assert [cfg.model, cfg.run_mode] == [
+            assert [cfg.model, cfg.run_mode, cfg.profile_dir] == [
                 argv[argv.index(f) + 1] if f in argv else d
-                for f, d in (("--model", "linear"), ("--run-mode", "infere"))]
+                for f, d in (("--model", "linear"), ("--run-mode", "infere"),
+                             ("--profile-dir", ""))]
         else:
             with pytest.raises(SystemExit, match="ROADMAP.md"):
                 cli.parse_config(base + argv)

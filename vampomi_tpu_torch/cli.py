@@ -11,8 +11,9 @@ packed-int4 (`--compute-dtype int4`) designs, with `--checkpoint-file` and
 `--run-mode association_test` (`--pval-method se | loo | loo_std`), which
 does not depend on the model; `--init-conf` starts the prior from a Gibbs
 warm start's `.conf` (python -m vampomi_tpu_torch.gibbs, then
-scripts/conf_gibbs_init.py).  `--profile-dir` exits with a message naming
-ROADMAP.md; it is not replaced by other behaviour.
+scripts/conf_gibbs_init.py); `--profile-dir DIR` records the inference
+run with torch.profiler, as the JAX package wraps it in jax.profiler.trace
+(vampomi_tpu/cli.py:194-220).  The port refuses no flag of the JAX CLI.
 
     python -m vampomi_tpu_torch.cli --device cuda --meth-file x.bin ...
 
@@ -32,8 +33,11 @@ rounding of the sums over markers.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
+
+import torch
 
 from .config import RunConfig, resolve_device
 
@@ -122,7 +126,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="warm-start .conf from scripts/conf_gibbs_init.py: sets "
                         "rho, h2, probs and vars; explicit --probs/--vars "
                         "flags still win")
-    x.add_argument("--profile-dir", default="")
+    x.add_argument("--profile-dir", default="",
+                   help="record the inference run (--run-mode infere) with "
+                        "torch.profiler: CPU activity, and CUDA activity on the "
+                        "card; one Chrome/TensorBoard trace a rank "
+                        "(rank<r>.*.pt.trace.json) in this directory")
     x.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="run on the card (default; raises without one) or "
                         "on the CPU")
@@ -167,7 +175,6 @@ def parse_config(argv: list[str]) -> RunConfig:
         print(f"WARNING: --num-mix-comp {args.num_mix_comp} is decorative — "
               f"the prior has len(--probs) = {len(cfg.probs)} components "
               f"(reference options.cpp:147-155)")
-    _reject_unported(cfg)
     cfg.check()
     return cfg
 
@@ -178,13 +185,21 @@ def _distributed() -> bool:
     return os.environ.get("VAMPOMI_DISTRIBUTED") == "1"
 
 
-def _reject_unported(cfg: RunConfig) -> None:
-    """SystemExit naming ROADMAP.md for what the port does not run yet:
-    --profile-dir."""
-    if cfg.profile_dir:
-        raise SystemExit(
-            "vampomi_tpu_torch: --profile-dir not ported yet — see the "
-            "port's queue in ROADMAP.md (use the JAX package vampomi_tpu meanwhile)")
+def profiled(profile_dir: str, device, shard):
+    """torch.profiler over the block when `profile_dir` is set (else a null
+    context): CPU activity, plus CUDA activity on a card, written when the
+    block ends as one Chrome trace a rank, `rank<r>.<time>.pt.trace.json`,
+    which TensorBoard's profiler plugin reads too."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    rank = 0 if shard is None else shard.rank
+    return profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(profile_dir, f"rank{rank}"))
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -237,7 +252,8 @@ def _run(cfg: RunConfig, device, shard) -> int:
             from .engine.probit import infere_bin_class as infere
         else:
             from .engine.linear import infere_linear as infere
-        infere(ds.dm, ds.phen.y, cfg, true_signal, x1hat_init, covariates=ds.covariates)
+        with profiled(cfg.profile_dir, device, shard):
+            infere(ds.dm, ds.phen.y, cfg, true_signal, x1hat_init, covariates=ds.covariates)
     elif cfg.run_mode == "test":
         from .modes.test_mode import run_test_linear, run_test_probit
 

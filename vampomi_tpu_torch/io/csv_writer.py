@@ -1,4 +1,4 @@
-# Copied from vampomi_tpu/io/csv_writer.py, its rank check (:20-33) on torch.distributed's rank (sharding.is_writer).
+# Copied from vampomi_tpu/io/csv_writer.py, its rank check (:20-33) on torch.distributed's rank (sharding.is_writer) and its native rows through the port's runtime (io/native.py).
 """Fixed-width positional CSV writer, byte-compatible with the reference.
 
 The reference writes row k at byte offset k * strlen(row) with fields
@@ -13,6 +13,7 @@ from __future__ import annotations
 import os
 
 from ..sharding import is_writer
+from . import native
 
 # CSV files are written by rank 0 only, like the reference's rank-0 MPI-IO
 # writes (src/utilities.cpp:366-401): a shared out_dir must not see
@@ -29,18 +30,17 @@ class PositionalCSV:
                 f.write((", ".join(header) + "\n").encode())
 
     def write_row(self, iteration: int, values: list[float]) -> None:
+        """Row `iteration` at byte offset iteration * its length, formatted
+        and written by the native runtime (C's snprintf: "%5d" % iteration
+        + ", %20.15f" % v a value + "\n", the bytes Python's % gives)."""
         if not is_writer():
             return
         values = [float(v) for v in values]
-        row = "%5d" % iteration
-        for v in values:
-            row += ", %20.15f" % v
-        row += "\n"
-        data = row.encode()
-        offset = iteration * len(data)
-        with open(self.path, "r+b") as f:
-            f.seek(offset)
-            f.write(data)
+        if not os.path.exists(self.path):
+            # as the JAX package's r+b write: a positional write to a
+            # missing file is a misconfiguration, not a creation
+            raise FileNotFoundError(self.path)
+        native.write_csv_row(self.path, iteration, values)
 
 
 def read_positional_csv(path: str) -> list[list[float]]:

@@ -211,8 +211,27 @@ def _host_stats(X_raw: np.ndarray, alpha_scale: float):
     stats = np.asarray(X_raw, dtype=np.float64)
     n = stats.shape[1]
     mave = stats.sum(axis=1) / n
-    sumsqr = ((stats - mave[:, None]) ** 2).sum(axis=1)
-    return mave, inv_sd_from_sumsq(sumsqr, n, alpha_scale)
+    return mave, inv_sd_from_sumsq(_centered_sumsq(stats, mave), n, alpha_scale)
+
+
+def _centered_sumsq(X: np.ndarray, mean: np.ndarray) -> np.ndarray:
+    """((X - mean[:, None]) ** 2).sum(axis=1) in f64, through one temporary
+    updated in place (the same operations, so the same bits)."""
+    t = np.subtract(X, mean[:, None], dtype=np.float64)
+    np.square(t, out=t)
+    return t.sum(axis=1)
+
+
+def _affine_codes(X: np.ndarray, s: np.ndarray, z: np.ndarray, lo: int, hi: int) -> np.ndarray:
+    """clip(rint((X - z) / s), lo, hi) as int8 codes, each row by its own
+    s and z, through one f64 temporary updated in place (the same
+    operations as the expression, so the same bits, with a third of its
+    allocations: the streamed ingest runs this on every chunk)."""
+    t = np.subtract(X, z[:, None])
+    np.divide(t, s[:, None], out=t)
+    np.rint(t, out=t)
+    np.clip(t, lo, hi, out=t)
+    return t.astype(np.int8)
 
 
 def quantize_markers(X_rows: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -231,10 +250,7 @@ def quantize_markers(X_rows: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.nda
     rng = mx - mn
     s = np.where(rng > 0.0, rng / 254.0, 1.0)
     z = 0.5 * (mn + mx)
-    Xq = np.clip(
-        np.rint((X - z[:, None]) / s[:, None]), -127, 127
-    ).astype(np.int8)
-    return Xq, s, z
+    return _affine_codes(X, s, z, -127, 127), s, z
 
 
 def quantize_markers4(X_rows: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -252,10 +268,8 @@ def quantize_markers4(X_rows: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.nd
     rng = mx - mn
     s = np.where(rng > 0.0, rng / 15.0, 1.0)
     z = np.where(rng > 0.0, mn + 8.0 * s, X[:, 0])  # -8 ↦ mn, +7 ↦ mx
-    Xq = np.clip(
-        np.rint((X - z[:, None]) / s[:, None]), -8, 7
-    ).astype(np.int8)  # constant rows: z = value, s = 1 → codes exactly 0
-    return Xq, s, z
+    # constant rows: z = value, s = 1 → codes exactly 0
+    return _affine_codes(X, s, z, -8, 7), s, z
 
 
 def pack_nibbles_host(codes: np.ndarray) -> np.ndarray:
@@ -278,7 +292,7 @@ def dequantized_stats(
     Xq = np.asarray(Xq)
     n = Xq.shape[1]
     qmean = Xq.astype(np.float64).mean(axis=1)
-    qsumsq = ((Xq.astype(np.float64) - qmean[:, None]) ** 2).sum(axis=1)
+    qsumsq = _centered_sumsq(Xq, qmean)
     mave = s * qmean + z
     msig_unit = inv_sd_from_sumsq(qsumsq, n, alpha_scale)  # of Xq itself
     # sd(s·Xq) = s·sd(Xq): fold s^alpha into the inverse sd
@@ -291,8 +305,10 @@ def dequantized_stats(
 # ---------------------------------------------------------------------------
 
 
-def _assemble(X: torch.Tensor, mave, msig, n: int, device,
-              shard: Shard | None = None) -> DesignMatrix:
+def assemble(X: torch.Tensor, mave, msig, n: int, device,
+             shard: Shard | None = None) -> DesignMatrix:
+    """The DesignMatrix over stored rows X on `device` with the f64 host
+    statistics mave and msig (cast once to the work dtype)."""
     vd = torch.float32 if X.dtype in NARROW else X.dtype
     m = X.shape[0]
 
@@ -313,18 +329,15 @@ def _assemble(X: torch.Tensor, mave, msig, n: int, device,
     )
 
 
-def build_design(
-    X_raw: np.ndarray,
-    compute_dtype: torch.dtype = torch.float32,
-    device: str | torch.device = "cpu",
-    alpha_scale: float = 1.0,
-    quant_out: dict | None = None,
-    shard: Shard | None = None,
-) -> DesignMatrix:
-    """A DesignMatrix on `device` from raw (Mt, N) marker-major host data,
-    or with a `shard` from the rank's (hi - lo, N) rows of it: every
-    statistic and quantizer below is per marker, so a slab's rows are the
-    global design's rows.
+def design_rows(X_rows: np.ndarray, compute_dtype: torch.dtype, alpha_scale: float = 1.0):
+    """What a design stores for raw (m, N) marker-major host rows, on the
+    host: (X, mave, msig, scale, zero) with X the stored rows as a CPU
+    tensor, mave and msig f64 arrays of m, and for a quantized design the
+    f64 affine scale and zero of each row (else None).  Every statistic
+    and quantizer here is per marker, so the rows of any chunk of a matrix
+    give that chunk's rows of the whole matrix's design, bit for bit
+    (build_design takes them in one piece, dataset.load_dataset chunk by
+    chunk).
 
     f64 / f32: X is stored as is; mave/msig are the f64 host statistics.
     bf16: the raw values rounded to bf16 (f64 → f32 → bf16, as numpy's
@@ -336,37 +349,52 @@ def build_design(
     pack_nibbles_host, which needs an even N), standardized against the
     statistics of the dequantized values and with the affine map folded
     into mave/msig, exactly as vampomi_tpu/ops/operator.py:489-574 does:
-    msig∘(s·Xq + z - mave) == (msig·s)∘(Xq - (mave - z)/s).
-    `quant_out`, if given, receives {"scale": s, "zero": z} (f64, length
-    Mt, or the slab's hi - lo) for a quantized design.  No padding."""
-    X_raw = np.asarray(X_raw)
-    n = X_raw.shape[1]
-    device = torch.device(device)
+    msig∘(s·Xq + z - mave) == (msig·s)∘(Xq - (mave - z)/s)."""
+    X_rows = np.asarray(X_rows)
     if compute_dtype in QUANTIZED:
         packed = compute_dtype == PACKED4_DTYPE
-        Xq, qs, qz = quantize_markers4(X_raw) if packed else quantize_markers(X_raw)
-        if quant_out is not None:
-            quant_out["scale"] = qs
-            quant_out["zero"] = qz
+        Xq, qs, qz = quantize_markers4(X_rows) if packed else quantize_markers(X_rows)
         mave, msig = dequantized_stats(Xq, qs, qz, alpha_scale)
-        mave = (mave - qz) / qs
-        msig = msig * qs
-        X = torch.as_tensor(pack_nibbles_host(Xq) if packed else Xq).to(device)
-    elif compute_dtype in (torch.float64, torch.float32):
-        mave, msig = _host_stats(X_raw, alpha_scale)
+        X = torch.from_numpy(pack_nibbles_host(Xq) if packed else Xq)
+        return X, (mave - qz) / qs, msig * qs, qs, qz
+    if compute_dtype in (torch.float64, torch.float32):
+        mave, msig = _host_stats(X_rows, alpha_scale)
         np_dtype = np.float64 if compute_dtype == torch.float64 else np.float32
         # a copy: the reader may hand out a read-only memory map of the file
-        X = torch.from_numpy(np.array(X_raw, dtype=np_dtype)).to(device)
-    elif compute_dtype == torch.bfloat16:
-        mave, msig = _host_stats(X_raw, alpha_scale)
+        return torch.from_numpy(np.array(X_rows, dtype=np_dtype)), mave, msig, None, None
+    if compute_dtype == torch.bfloat16:
+        mave, msig = _host_stats(X_rows, alpha_scale)
         # f64 → f32 → bf16, two roundings, as ml_dtypes casts in the JAX
         # package (one rounding straight to bf16 differs near a midpoint)
-        X = torch.from_numpy(np.array(X_raw, dtype=np.float32)).to(torch.bfloat16).to(device)
-    else:
-        raise NotImplementedError(
-            f"compute dtype {compute_dtype} is not a design dtype (float64, float32, "
-            "bfloat16, int8, or PACKED4_DTYPE for int4)")
-    return _assemble(X.contiguous(), mave, msig, n, device, shard)
+        X = torch.from_numpy(np.array(X_rows, dtype=np.float32)).to(torch.bfloat16)
+        return X, mave, msig, None, None
+    raise NotImplementedError(
+        f"compute dtype {compute_dtype} is not a design dtype (float64, float32, "
+        "bfloat16, int8, or PACKED4_DTYPE for int4)")
+
+
+def build_design(
+    X_raw: np.ndarray,
+    compute_dtype: torch.dtype = torch.float32,
+    device: str | torch.device = "cpu",
+    alpha_scale: float = 1.0,
+    quant_out: dict | None = None,
+    shard: Shard | None = None,
+) -> DesignMatrix:
+    """A DesignMatrix on `device` from raw (Mt, N) marker-major host data,
+    or with a `shard` from the rank's (hi - lo, N) rows of it: every
+    statistic and quantizer is per marker (design_rows, which says what
+    each compute dtype stores), so a slab's rows are the global design's
+    rows.  `quant_out`, if given, receives {"scale": s, "zero": z} (f64,
+    length Mt, or the slab's hi - lo) for a quantized design.  No
+    padding."""
+    X_raw = np.asarray(X_raw)
+    device = torch.device(device)
+    X, mave, msig, qs, qz = design_rows(X_raw, compute_dtype, alpha_scale)
+    if qs is not None and quant_out is not None:
+        quant_out["scale"] = qs
+        quant_out["zero"] = qz
+    return assemble(X.to(device).contiguous(), mave, msig, X_raw.shape[1], device, shard)
 
 
 def _device_design(X: torch.Tensor, n: int, rows_f64, alpha_scale: float,
