@@ -91,9 +91,10 @@ Phases (each prints its own lines; any failure ends the run non-zero):
                 N = 10,240 on a planted packed design (2,048 causal markers:
                 the same density), after the int8 X is freed.
   7. gibbs    — the Gibbs warm start (vampomi_tpu_torch/gibbs): after the CLI
-                phases, card against CPU at M = 16,384 x N = 2,048 for int8
-                and int4 (the block Grams bitwise, then 3 sweeps, each from
-                the card's state with the same draws) and the workflow
+                phases, card against CPU at M = 16,384 x N = 2,048 for int8,
+                int4 and bf16 (the block Grams bitwise; bf16's, f32 products
+                of the upcast values, to f32 rounding; then 3 sweeps, each
+                from the card's state with the same draws) and the workflow
                 through files at N = 2,000 x M = 8,000 (the Gibbs CLI, 40
                 sweeps; conf_gibbs_init; pip; the CLI's eigen run from the
                 .conf); after phase 5c, gibbs_block_update against its plain
@@ -104,8 +105,10 @@ Phases (each prints its own lines; any failure ends the run non-zero):
                 --gibbs-reference CU (an earlier gibbs_block.cu), bitwise
                 against that kernel and timed against it in turns; then
                 run_gibbs at full width on that design (4,096 blocks of 256,
-                3 sweeps) and, after phase 6, on the packed one (8,192
-                blocks, 2 sweeps): Gram build and sweep seconds, peak
+                3 sweeps), after phase 6 on the packed one (8,192 blocks, 2
+                sweeps) and after phase 8 on the bf16 one (4,096 blocks, 2
+                sweeps: atx_bf16 and ax_batch_bf16 at a block's shape):
+                Gram build and sweep seconds, peak
                 memory, h2 and m_incl per sweep, launches checked exactly
                 (nb kernel launches and nb passes each way a sweep), one
                 more sweep's host enqueue time against its wall, the host
@@ -115,7 +118,8 @@ Phases (each prints its own lines; any failure ends the run non-zero):
                 of the raw values, chunk by chunk; 20 GiB of bf16 X), 4
                 eigen, 4 auto (spectral) and 2 CG iterations with the
                 outputs on and off, launches checked exactly per run; then
-                SE, LOO, loo_std, test and predict on its dumps.
+                SE, LOO, loo_std, test and predict on its dumps; then phase
+                7's full-width bf16 sweeps on this design.
   9. doctor   — python -m vampomi_tpu_torch.doctor in a subprocess: exit 0.
   10. ranks   — the markers split over torch.distributed ranks
                 (vampomi_tpu_torch/sharding.py), in subprocesses of this
@@ -141,9 +145,12 @@ Phases (each prints its own lines; any failure ends the run non-zero):
                 within 3, the SE p-values byte-identical, LOO and loo_std
                 -log10 p, the test CSV and .yhat within rtol 1e-4; every
                 rank's launches and collectives exact per iteration and per
-                mode; one (N, 2) all_reduce timed under gloo and NCCL, the
+                mode; each dump's largest difference as a share of its
+                bar; one (N, 2) all_reduce timed under gloo and NCCL, the
                 wall an iteration (linear and probit), each mode's seconds
-                and the peak memory a rank.  (b) the CLI under python -m
+                and the peak memory a rank; the bytes of U each process
+                and rank holds and its torch.cuda.memory_allocated right
+                after the eigen run's setup.  (b) the CLI under python -m
                 torch.distributed.run with 3 ranks at N = 2,000 x
                 Mt = 8,002 (ragged slabs), each command once: linear int8
                 and int4 with eigen and CG, --model bin_class int8 with
@@ -159,7 +166,11 @@ Phases (each prints its own lines; any failure ends the run non-zero):
                 dispatch in one process group: a launch costs more than the
                 commands), against the same commands in one process (the
                 bars of (a)); --profile-dir over 3 ranks (a Chrome trace a
-                rank; the dumps byte for byte the run's without it).
+                rank; the dumps byte for byte the run's without it); in
+                the run modes' launch, api.py with shard="auto" over the 3
+                ranks (fit_linear and fit_probit with eigen,
+                association_pvals, predict_probit) within rtol 1e-4 of the
+                one-process CLI's dumps, SE p-values and probit scores.
                 Prints the walls of its two waves of launches and the
                 {"ranks": {...}} line.
   11. files   — after phase 9, the user's workflow through real files: (a)
@@ -221,6 +232,7 @@ import threading
 import time
 import warnings
 from typing import Callable, NamedTuple
+from unittest import mock
 
 import numpy as np
 
@@ -231,6 +243,7 @@ import torch  # noqa: E402
 from vampomi_tpu_torch import cli  # noqa: E402
 from vampomi_tpu_torch.config import RunConfig, resolve_device  # noqa: E402
 from vampomi_tpu_torch.dataset import Dataset  # noqa: E402
+from vampomi_tpu_torch.engine import linear as linear_engine  # noqa: E402
 from vampomi_tpu_torch.engine.linear import infere_linear  # noqa: E402
 from vampomi_tpu_torch.engine.probit import infere_bin_class  # noqa: E402
 from vampomi_tpu_torch.gibbs import __main__ as gibbs_cli  # noqa: E402
@@ -280,6 +293,7 @@ from vampomi_tpu_torch.tools import (  # noqa: E402
     in_turns, matvec_bound, random_codes, rel_err,
 )
 from vampomi_tpu_torch.tools import matvec_floor_probe, r4_probe  # noqa: E402
+from vampomi_tpu_torch.utils.mathx import normal_cdf  # noqa: E402
 
 NS_M, NS_N = 1_048_576, 10_240          # the north-star shape (README.md, bench.py)
 I4_M = 2_097_152                        # the int4 configuration: twice the markers
@@ -1499,6 +1513,10 @@ GIBBS_HOST_CALLS = 100
 # moves the following markers of its block through c, by its own size
 # times their correlation)
 GIBBS_FLIPS, GIBBS_PARITY_TOL = 8, 1e-4
+# card against CPU, a bf16 design's block Grams: f32 products of the upcast
+# codes summed in another order (cuBLAS against the host's BLAS), held to
+# |card - cpu| <= rtol |cpu| + atol, the f32 Gram bar of tests/test_torch_gibbs.py
+GIBBS_GRAM_RTOL, GIBBS_GRAM_ATOL = 2e-5, 2e-6
 
 
 def gibbs_inputs(dev, B: int, L: int, masked: int, seed: int, Gb=None, r0=None) -> tuple:
@@ -1660,14 +1678,24 @@ def phase_gibbs_kernel(main: MainPath, reference: str = "") -> dict:
 
 def phase_gibbs_parity(dev, dtype: str, m: int = 16_384, n: int = 2_048, sweeps: int = 3) -> None:
     """Card against CPU at M x N (data_sim): the block Grams (quantized:
-    bitwise), then `sweeps` sweeps, each from the card's state on both
-    devices with the same draws (TorchDraws of one seed)."""
+    bitwise; bf16: f32 products of the upcast codes, to f32 rounding),
+    then `sweeps` sweeps, each from the card's state on both devices with
+    the same draws (TorchDraws of one seed)."""
     t0 = time.perf_counter()
     fx = simulate_iid(n=n, m=m, lam=0.05, h2=0.6, seed=SEED)
     y = fx.y / np.std(fx.y, ddof=1)
-    dms = {d: build_design(fx.X.T, compute_dtype=DTYPES[dtype], device=d) for d in (dev, "cpu")}
+    dms = {d: build_design(fx.X.T, compute_dtype=PARITY_DTYPES[dtype], device=d)
+           for d in (dev, "cpu")}
     grams = {d: gibbs.build_block_grams(dm, block=GIBBS_B) for d, dm in dms.items()}
-    check(torch.equal(grams[dev].cpu(), grams["cpu"]), f"gibbs {dtype}: card Grams differ")
+    gc, gh = grams[dev].cpu(), grams["cpu"]
+    if dtype in DTYPES:
+        check(torch.equal(gc, gh), f"gibbs {dtype}: card Grams differ")
+    else:
+        diff = (gc - gh).abs()
+        log(f"[gibbs] {dtype} card vs cpu block Grams: max |diff| {float(diff.max()):.3g} of max "
+            f"|G| {float(gh.abs().max()):.4g} (rtol {GIBBS_GRAM_RTOL:g}, atol {GIBBS_GRAM_ATOL:g})")
+        check(bool((diff <= GIBBS_GRAM_RTOL * gh.abs() + GIBBS_GRAM_ATOL).all()),
+              f"gibbs {dtype}: card Grams past f32 rounding")
     cvars = gibbs.decade_cvars(GIBBS_L)
     state = gibbs.init_state(dms["cpu"], y, GIBBS_L)
     flips, errs = [], []
@@ -1698,25 +1726,48 @@ def phase_gibbs_parity(dev, dtype: str, m: int = 16_384, n: int = 2_048, sweeps:
         f"{time.perf_counter() - t0:.1f}s")
 
 
-GIBBS_PASSES = {"int8": ("atx_int8", "ax_batch_int8"), "int4": ("atx_packed4", "ax_batch_packed4")}
+GIBBS_PASSES = {"int8": ("atx_int8", "ax_batch_int8"), "int4": ("atx_packed4", "ax_batch_packed4"),
+                "bf16": ("atx_bf16", "ax_batch_bf16")}
+
+
+def check_gibbs_block_kernels(dm, dtype: str, y) -> None:
+    """The sweep's two block passes at the sweep's own shapes: block 0 of
+    dm (GIBBS_B rows at full width), atx at K = 1 on y (the first sweep's
+    residual) and ax_batch at K = 1 on a random block vector, each against
+    its plain version and the f64 product on the same inputs (check_kernel:
+    KERNEL_TOL of sum |x||v|, bitwise repeatable)."""
+    d0 = gibbs._block_dm(dm, 0, GIBBS_B)
+    g = torch.Generator(device=dm.device).manual_seed(SEED + 9)
+    atx_name, ax_name = GIBBS_PASSES[dtype]
+    check_kernel(atx_name, d0.X, torch.as_tensor(y, dtype=torch.float32,
+                                                 device=dm.device)[:, None], timed=False)
+    check_kernel(ax_name, d0.X, torch.randn((GIBBS_B, 1), device=dm.device, generator=g),
+                 timed=False)
 
 
 def phase_gibbs_main(dtype: str, main: MainPath, out_dir: str, sweeps: int) -> dict:
     """run_gibbs at full width on the main path's planted design (B = 256,
-    L = 4), the CSV, .bet and .grm in out_dir; launches counted from 0 just
-    before and read just after, checked exactly: nb kernel launches and nb
+    L = 4), the CSV, .bet and .grm in out_dir; first the block passes'
+    kernels against their plain versions at a block's shape
+    (check_gibbs_block_kernels), then launches counted from 0 just before
+    the run and read just after, checked exactly: nb kernel launches and nb
     passes each way a sweep.  Prints the Gram build, the sweeps' seconds,
     peak memory, h2 and m_incl per sweep, then the host syncs of one more
     sweep (torch's sync debug mode).  Returns the launches."""
     dm, y = main.dataset.dm, main.dataset.phen.y
     dev = dm.device
     nb = dm.m_pad // GIBBS_B
-    d0 = gibbs._block_dm(dm, 0, GIBBS_B)
-    Xq = d0.X if d0.X.dtype == torch.int8 else gibbs.unpack_rows(d0.X, torch.int8)
-    int_mm_ms = card_ms(lambda: gibbs._codes_product(Xq), reps=5, warmup=1, calls=KERNEL_CALLS)
-    n_dev = torch.tensor(float(dm.n), dtype=torch.float32, device=dev)
-    block_ms = card_ms(lambda: gibbs._quantized_gram(d0, n_dev), reps=5, warmup=1,
-                       calls=KERNEL_CALLS)
+    check_gibbs_block_kernels(dm, dtype, y)
+    block = ""
+    if dm.X.dtype in QUANTIZED:  # a block Gram's integer product, timed alone
+        d0 = gibbs._block_dm(dm, 0, GIBBS_B)
+        Xq = d0.X if d0.X.dtype == torch.int8 else gibbs.unpack_rows(d0.X, torch.int8)
+        int_mm_ms = card_ms(lambda: gibbs._codes_product(Xq), reps=5, warmup=1,
+                            calls=KERNEL_CALLS)
+        n_dev = torch.tensor(float(dm.n), dtype=torch.float32, device=dev)
+        block_ms = card_ms(lambda: gibbs._quantized_gram(d0, n_dev), reps=5, warmup=1,
+                           calls=KERNEL_CALLS)
+        block = f" (a block: torch._int_mm {int_mm_ms:.4f} ms, the whole Gram {block_ms:.4f} ms)"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
@@ -1731,8 +1782,8 @@ def phase_gibbs_main(dtype: str, main: MainPath, out_dir: str, sweeps: int) -> d
     m_incl = [int(r[5]) for r in rows]
     secs = list(res.sweep_seconds)
     log(f"[gibbs {dtype}] M={dm.m_pad} N={int(dm.n)}: {nb} block Grams (B={GIBBS_B}, "
-        f"{nb * GIBBS_B * GIBBS_B * 4 / 2**30:.2f} GiB) in {res.gram_seconds:.3f}s (a block: "
-        f"torch._int_mm {int_mm_ms:.4f} ms, the whole Gram {block_ms:.4f} ms); sweep seconds "
+        f"{nb * GIBBS_B * GIBBS_B * 4 / 2**30:.2f} GiB) in {res.gram_seconds:.3f}s{block}; "
+        f"sweep seconds "
         f"{[round(t, 3) for t in secs]} (median of sweeps 2..{sweeps}: "
         f"{float(np.median(secs[1:])):.3f}s, {float(np.median(secs[1:])) * 1e9 / dm.m_pad:.0f} "
         f"ns a marker); peak memory {peak:.2f} GiB; h2 {np.round(h2, 4).tolist()}, m_incl "
@@ -1940,6 +1991,22 @@ def _counted(shard, fn):
             (shard.collectives() - c0) if shard is not None else None, secs)
 
 
+def _factor_reading(into: dict) -> Callable:
+    """engine/linear.py build_lmmse_factor, and what the rank holds right
+    after an eigen setup into `into`: U's shape and the bytes of its
+    storage, and torch.cuda.memory_allocated."""
+    build = linear_engine.build_lmmse_factor
+
+    def reading(dm, cfg, solver, setup):
+        solver, fac = build(dm, cfg, solver, setup)
+        if solver == "eigen":
+            torch.cuda.synchronize()
+            into.update(u_shape=list(fac.U.shape), u_bytes=fac.U.untyped_storage().nbytes(),
+                        after_setup_bytes=torch.cuda.memory_allocated(dm.device))
+        return solver, fac
+    return reading
+
+
 def rank_tag_runs(spec: dict, tag: str, runs, dm, problem: dict) -> dict:
     """One group's (or one process's) runs of phase 10 (a) on its design dm:
     the linear `runs`, probit on the planted labels (PROBIT_RANK_RUNS), and
@@ -1961,9 +2028,11 @@ def rank_tag_runs(spec: dict, tag: str, runs, dm, problem: dict) -> dict:
         cfg = RunConfig(out_dir=out_dir, out_name=name, iterations=k, lmmse_solver=solver,
                         learn_prior_delay=k, **problem["prior"], **common)
         torch.cuda.reset_peak_memory_stats(dev)
-        with engine_log(spec["log_dir"], f"{name}_rank{rank}"):
+        factor = {}
+        with engine_log(spec["log_dir"], f"{name}_rank{rank}"), mock.patch.object(
+                linear_engine, "build_lmmse_factor", _factor_reading(factor)):
             res, count, _, _ = _counted(shard, lambda: infere_linear(dm, y, cfg, true_signal=beta))
-        lin.append(dict(label=label, solver=res.solver, gamw=float(res.gamw).hex(),
+        lin.append(dict(label=label, solver=res.solver, gamw=float(res.gamw).hex(), **factor,
                         lam_sum=(float(res.setup["eigen_lam_sum"]).hex()
                                  if "eigen_lam_sum" in res.setup else None),
                         loaded="eigen_cache_load" in res.setup, seconds=res.iter_seconds,
@@ -2221,6 +2290,31 @@ def _mode_values(out_dir: str, tag: str, mode: str) -> np.ndarray:
     return np.fromfile(os.path.join(out_dir, f"{tag}_modes_it_{k}_pval_{mode}.bin"))
 
 
+def rank_dump_diffs(out_dir: str, tag: str, ref: str) -> tuple[dict, dict, list]:
+    """Group `tag`'s dumps of phase 10 (a)'s linear and probit runs against
+    group `ref`'s: by run, the largest |diff|, the largest |diff| of each
+    dump (x1 then r1, iteration by iteration) as a share of its bar
+    RANK_RTOL |ref| + RANK_ATOL, and the dumps past it with their counts of
+    markers past it."""
+    worst, share, past = {}, {}, []
+    for prefix, rs in (("", RANK_RUNS), ("probit_", PROBIT_RANK_RUNS)):
+        for label, _, k, expect in rs:
+            key = prefix + label
+            share[key] = []
+            for it in range(1, k + 1):
+                for kind in ("", "r1_"):
+                    a, b = (read_bin_slab(os.path.join(out_dir, f"{t}_{key}_{kind}it_{it}.bin"),
+                                          NS_M) for t in (tag, ref))
+                    diff, bar = np.abs(a - b), RANK_RTOL[expect] * np.abs(b) + RANK_ATOL
+                    share[key].append(round(float(np.max(diff / bar)), 4))
+                    if not within(a, b, RANK_RTOL[expect], RANK_ATOL):
+                        j = int(np.argmax(diff / bar))
+                        past.append(f"{key} {kind}it_{it} ({int(np.sum(diff > bar))} markers; "
+                                    f"the worst, marker {j}: {a[j]!r} against {b[j]!r})")
+                    worst[key] = max(worst.get(key, 0.0), float(np.max(diff)))
+    return worst, share, past
+
+
 def phase_ranks_main(dev: str, log_dir: str, out_dir: str) -> dict:
     """Phase 10 (a): the int8 north-star main path, probit on planted labels
     and the run modes as one process without a group, which then runs as
@@ -2253,19 +2347,20 @@ def phase_ranks_main(dev: str, log_dir: str, out_dir: str) -> dict:
     two = rank_group(2, "r2", RANK_RUNS, out_dir, log_dir, problem)["r2"]
     check(two[0]["backend"] == "gloo", f"two ranks on one card ran {two[0]['backend']}, not gloo")
     check_rank_runs("r2", two, RANK_RUNS, out_dir)
-    worst = {}
-    for prefix, rs in (("", RANK_RUNS), ("probit_", PROBIT_RANK_RUNS)):
-        for label, _, k, expect in rs:
-            for it in range(1, k + 1):
-                for kind in ("", "r1_"):
-                    a, b = (read_bin_slab(os.path.join(out_dir, f"{t}_{prefix}{label}_{kind}it_"
-                                                                f"{it}.bin"), NS_M)
-                            for t in ("r2", "r1"))
-                    check(within(a, b, RANK_RTOL[expect], RANK_ATOL),
-                          f"ranks: two ranks' {prefix}{label} {kind}it_{it} past rtol "
-                          f"{RANK_RTOL[expect]}")
-                    key = prefix + label
-                    worst[key] = max(worst.get(key, 0.0), float(np.max(np.abs(a - b))))
+    setup = {f"{tag}_rank{r['rank']}": {k: run[k] for k in ("u_shape", "u_bytes",
+                                                         "after_setup_bytes")}
+             for tag, res in (("1", one), ("1_nccl", nccl), ("2", two)) for r in res
+             for run in r["runs"] if run["label"] == "eigen"}
+    mib = lambda b: round(b / 2**20, 1)  # noqa: E731
+    held = {k: (v["u_shape"], mib(v["u_bytes"]), mib(v["after_setup_bytes"]))
+            for k, v in setup.items()}
+    log(f"[ranks] right after the eigen run's setup (N = {NS_N}): U's shape, its storage's MiB "
+        f"and torch.cuda.memory_allocated MiB, by process and rank {held}")
+    worst, share, past = rank_dump_diffs(out_dir, "r2", "r1")
+    log(f"[ranks] two gloo ranks against one process, the largest |diff| of each dump as a "
+        f"share of its bar (rtol {RANK_RTOL}, atol {RANK_ATOL}; x1 then r1, iteration by "
+        f"iteration): {share}")
+    check(not past, f"ranks: two ranks' dumps past the bar of one process's: {past}")
     labels = {}
     for i, (label, *_) in enumerate(PROBIT_RANK_RUNS):
         a, b = (np.asarray(g[0]["probit"][i]["metrics"]) for g in (two, one))
@@ -2294,6 +2389,9 @@ def phase_ranks_main(dev: str, log_dir: str, out_dir: str) -> dict:
         probit_ms[tag] = {run["label"]: 1e3 * float(np.median(run["seconds"][1:]))
                           for run in res[0]["probit"]}
         mode_s[tag] = {m: max(r["modes"][m]["seconds"] for r in res) for m in RANK_MODES}
+    log(f"[ranks] eigen, median ms an iteration (its 2..k, outputs on): one process "
+        f"{iteration_ms['1']['eigen']:.2f}, one NCCL rank {iteration_ms['1_nccl']['eigen']:.2f}, "
+        f"two gloo ranks {iteration_ms['2']['eigen']:.2f}")
     peak = {f"{tag}_rank{r['rank']}": max(run["peak_gib"] for run in r["runs"])
             for tag, res in (("1", one), ("2", two)) for r in res}
     out = dict(all_reduce_ms={"gloo_2_ranks": two[0]["all_reduce_ms"],
@@ -2307,7 +2405,8 @@ def phase_ranks_main(dev: str, log_dir: str, out_dir: str) -> dict:
                collectives_per_rank={run["label"]: run["collectives"] for run in two[0]["runs"]},
                probit_collectives_per_rank={run["label"]: run["collectives"]
                                             for run in two[0]["probit"]},
-               x1_corr={run["label"]: run["x1_corr"] for run in two[0]["runs"]})
+               x1_corr={run["label"]: run["x1_corr"] for run in two[0]["runs"]},
+               eigen_setup=setup)
     log(f"[ranks] two gloo ranks sharing the card: within rtol {RANK_RTOL} atol {RANK_ATOL} of "
         f"one process (max abs diff {worst}; probit counts within {labels} samples; modes' "
         f"max abs diff over the largest entry {modes_err}, SE byte-identical); one (N, 2) "
@@ -2386,25 +2485,61 @@ CLI_RANK_RUNS = (("linear", "int8", "eigen"), ("linear", "int8", "cg"),
 
 def cli_ranks_worker(spec_path: str) -> int:
     """One rank of a launch of phase 10 (b) that runs several CLI commands
-    (the JSON list of argv lists at spec_path) in one process group, each
+    (spec["argvs"], a list of argv lists) in one process group, each
     through the CLI's own parse_config and run-mode dispatch (cli._run) on
     the rank's slab: what `python -m vampomi_tpu_torch.cli` does for one
-    command, but with one process start and one group for all of them."""
+    command, but with one process start and one group for all of them; then
+    the array API over the same group (spec["api"], ranks_api)."""
     import torch.distributed as dist
 
     from vampomi_tpu_torch import sharding
 
     with open(spec_path) as f:
-        argvs = json.load(f)
+        spec = json.load(f)
+    argvs = spec["argvs"]
     dev = resolve_device(sharding.init_from_env(cli.parse_config(argvs[0]).device))
     try:
         for argv in argvs:
             cfg = cli.parse_config(argv)
             check(cli._run(cfg, dev, sharding.shard_for(cfg.Mt, dev)) == 0,
                   f"{argv[:4]}: non-zero exit")
+        ranks_api(spec["api"], dev)
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def ranks_api(job: dict, dev) -> None:
+    """api.py with shard="auto" in an initialised process group, on the CLI
+    fixture's (Mt, N) f64 matrix: fit_linear (eigen, iterations - 1: its
+    final r1 and gam1 are what the CLI's iteration `iterations` denoised,
+    which the CLI's SE run reads), association_pvals (SE) of that fit,
+    fit_probit (eigen, `iterations`) and predict_probit's probabilities on
+    the same X; the int8 design, the CLI runs' seed and hyperparameters.
+    Rank 0 writes the results to job["out"]."""
+    import torch.distributed as dist
+
+    from vampomi_tpu_torch import api, sharding
+    from vampomi_tpu_torch.io.phen import read_phen
+
+    n, m, iters = job["n"], job["m"], job["iters"]
+    check(sharding.shard_for(m, dev) is not None, "ranks api: no process group to split over")
+    X = np.fromfile(job["bin"]).reshape(m, n)
+    kw = dict(marker_major=True, device=str(dev), quiet=True, stop_criteria_thr=0.0,
+              probs=[0.9, 0.07, 0.03], vars=[0.0, 1e-3, 1e-2], compute_dtype="int8",
+              lmmse_solver="eigen", seed=SEED, true_signal=np.fromfile(job["ts"]))
+    t0 = time.perf_counter()
+    lin = api.fit_linear(X, read_phen(job["phen"], n, standardize=False).y, h2=0.8,
+                         iterations=iters - 1, shard="auto", **kw)
+    pv = api.association_pvals(lin, n, shard="auto")
+    pfit = api.fit_probit(X, read_phen(job["binphen"], n, standardize=False).y, rho=0.3,
+                          gam1=1e-2, iterations=iters, shard="auto", **kw)
+    proba = api.predict_probit(pfit, X, marker_major=True, device=str(dev), compute_dtype="int8",
+                               return_proba=True, shard="auto")
+    if dist.get_rank() == 0:
+        np.savez(job["out"], x1=lin.x1_hat_scaled, pvals=pv, px1=pfit.x1_hat_scaled,
+                 proba=proba, solvers=np.array([lin.solver, pfit.solver]),
+                 world=dist.get_world_size(), seconds=time.perf_counter() - t0)
 
 
 def _ranks_cli_runs(d: str, paths: dict, dev: str, log_dir: str, n: int, m: int, iters: int,
@@ -2510,8 +2645,11 @@ def _ranks_cli_runs(d: str, paths: dict, dev: str, log_dir: str, n: int, m: int,
     # the seven mode commands in one launch of 3 ranks (cli_ranks_worker):
     # a launch costs more than the commands it runs at this size
     spec = os.path.join(d, "modes3.json")
+    api_out = os.path.join(d, "api3.npz")
     with open(spec, "w") as f:
-        json.dump([mode_argv(f"m3_{mode}", mode) for mode in modes], f)
+        json.dump(dict(argvs=[mode_argv(f"m3_{mode}", mode) for mode in modes],
+                       api=dict(bin=paths["bin"], phen=paths["phen"], binphen=paths["binphen"],
+                                ts=paths["ts"], n=n, m=m, iters=iters, out=api_out)), f)
     modes3 = launch3("m3", [os.path.join(ROOT, "chip_smoke.py"), "--cli-ranks", spec])
     for mode in modes:
         with engine_log(log_dir, f"ranks_cli_m1_{mode}"):
@@ -2567,6 +2705,37 @@ def _ranks_cli_runs(d: str, paths: dict, dev: str, log_dir: str, n: int, m: int,
     log(f"[ranks] cli: the run modes over 3 ranks against one process: SE byte-identical, LOO "
         f"and loo_std -log10 p, test (linear) and .yhat within rtol {RANK_RTOL['eigen']}, "
         f"probit test counts within {PARITY_LABELS}")
+    # the array API over the same 3 ranks against the one-process CLI's files
+    rtol = RANK_RTOL["eigen"]
+    with np.load(api_out) as z:
+        got = {k: z[k] for k in z.files}
+    lin_x1 = read_bin_slab(f"{lin}_it_{iters - 1}.bin", m)
+    pb_x1 = read_bin_slab(f"{pb}_it_{iters}.bin", m)
+    se = read_bin_slab(os.path.join(d, "m1_se", f"m_it_{iters}_pval_se.bin"), m)
+    zhat = np.loadtxt(os.path.join(d, "m1_predict_probit", "y_.yhat"))
+    want_p = normal_cdf(torch.as_tensor(zhat)).numpy()  # Phi of the CLI's scores, as api's
+    errs = {k: float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+            for k, a, b in (("x1", got["x1"], lin_x1), ("probit_x1", got["px1"], pb_x1),
+                            ("proba", got["proba"], want_p))}
+    lp, lq = -np.log10(got["pvals"] + 1e-300), -np.log10(se + 1e-300)
+    errs["se_log10p"] = float(np.max(np.abs(lp - lq)) / np.max(np.abs(lq)))
+    # each output's largest |diff| as a share of phase 10 (a)'s bar; the
+    # estimates are held to it, the probabilities and -log10 p to rtol
+    # times their largest entry, as the CLI's modes over 3 ranks above
+    shares = {k: round(float(np.max(np.abs(a - b) / (rtol * np.abs(b) + RANK_ATOL))), 4)
+              for k, a, b in (("x1", got["x1"], lin_x1), ("probit_x1", got["px1"], pb_x1),
+                              ("proba", got["proba"], want_p), ("se_log10p", lp, lq))}
+    check(int(got["world"]) == 3 and list(got["solvers"]) == ["eigen", "eigen"],
+          f"ranks api: {got['world']} ranks, solvers {got['solvers']}")
+    check(within(got["x1"], lin_x1, rtol, RANK_ATOL) and within(got["px1"], pb_x1, rtol, RANK_ATOL)
+          and within(got["proba"], want_p, rtol) and within(lp, lq, rtol),
+          f"ranks api: shard='auto' over 3 ranks not within rtol {rtol} of the one-process CLI "
+          f"({errs}; shares of rtol |ref| + atol {RANK_ATOL:g}: {shares})")
+    log(f"[ranks] api: fit_linear, association_pvals, fit_probit and predict_probit with "
+        f"shard='auto' over 3 ranks in {float(got['seconds']):.1f}s, within rtol {rtol} of the "
+        f"one-process CLI's dumps (atol {RANK_ATOL:g}), SE p-values (-log10) and probit scores "
+        f"(atol: rtol times the largest entry); max |diff| over the largest entry {errs}; each "
+        f"largest |diff| as a share of rtol {rtol} |ref| + atol {RANK_ATOL:g}: {shares}")
     return same
 
 
@@ -3194,7 +3363,7 @@ def main(argv=None) -> int:
         with timed("4b_resume"):
             phase_resume(dev, log_dir)
         with timed("7_gibbs"):
-            for dtype in DTYPES:
+            for dtype in PARITY_DTYPES:
                 phase_gibbs_parity(dev, dtype)
             phase_gibbs_workflow(dev, log_dir)
         with timed("5_main_int8"):
@@ -3241,8 +3410,12 @@ def main(argv=None) -> int:
                            if name.endswith("bf16")})
             phase_modes("bf16", main16, out_dir, *main_dumps(out_dir, "bf16", "auto", 4),
                         test_runs=4)
-            del main16
-            torch.cuda.empty_cache()
+        with timed("7_gibbs"):
+            gibbs_counts = phase_gibbs_main("bf16", main16, out_dir, sweeps=2)
+        for name in ("gibbs_block_update", "atx_bf16", "ax_batch_bf16"):
+            counts[name] += gibbs_counts[name]
+        del main16
+        torch.cuda.empty_cache()
         with timed("9_doctor"):
             phase_doctor()
         with timed("11_files"):

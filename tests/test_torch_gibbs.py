@@ -14,7 +14,14 @@ rounding, not to f64; r0 = A^T y_resid and the sums of a sweep run in
 another order in each package.  A categorical draw flips only when u_j lands
 within that rounding of a cumulative weight, which these seeds do not hit, so
 the components are compared exactly and x, y_resid and the hyperparameters
-to rtol 1e-5 (atol 1e-6 of their scale where values pass through 0)."""
+to rtol 1e-5 (atol 1e-6 of their scale where values pass through 0).  A
+bf16 design's block passes differ more: JAX contracts bf16 x bf16 into f32,
+rounding the f32 vector to bf16 first (up to 2^-9 of each entry), where the
+port multiplies the upcast codes in f32 (ROADMAP's "bf16 torch.matmul rounds
+its output").  One sweep from one state moves x by up to 5.8e-4, y_resid by
+1.2e-3 (each over |ref| plus the vector's largest), mu, sigma_g and sigma_e
+by 7.1e-4, 1.9e-4 and 1.3e-4, and h2, vg, sigma_g and mu of the stats by up
+to 1.7e-3, so the bf16 sweep is held at 5e-3, under 3 times the largest."""
 
 import os
 import shutil
@@ -54,8 +61,11 @@ import chip_smoke  # noqa: E402
 torch.set_num_threads(2)
 
 RTOL = 1e-5
-JDT = {"float64": jnp.float64, "float32": jnp.float32, "int8": jnp.int8}
+BF16_TOL = 5e-3
+JDT = {"float64": jnp.float64, "float32": jnp.float32, "int8": jnp.int8,
+       "bfloat16": jnp.bfloat16}
 TDT = {"float64": torch.float64, "float32": torch.float32, "int8": torch.int8}
+WORK = {"float64": "float64", "float32": "float32", "bfloat16": "float32"}  # the state's dtype
 
 
 class JaxDraws:
@@ -119,12 +129,12 @@ def problem():
 # block Grams
 
 
-@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
 def test_block_grams_match_jax_float(problem, dtype):
-    """f64 and f32 designs: both packages form A_b A_b^T from the same
+    """f64, f32 and bf16 designs: both packages form A_b A_b^T from the same
     standardized rows (f64 products cast to f32, or f32 products at full
-    precision) — rtol 2e-5, atol 2e-6, the JAX test's f32 tolerance
-    (tests/test_gibbs.py:39)."""
+    precision; bf16 codes upcast to f32 first) — rtol 2e-5, atol 2e-6, the
+    JAX test's f32 tolerance (tests/test_gibbs.py:39)."""
     jdm, tdm = _designs(problem[0], dtype)
     want = np.asarray(jgibbs.build_block_grams(jdm, block=64))
     got = tsampler.build_block_grams(tdm, block=64)
@@ -299,39 +309,42 @@ def _jax_state_after(jdm, y, sweeps, l_comp=4, block=64, seed=5):
     return grams, state, cvars, key
 
 
-@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
 def test_gibbs_sweep_matches_jax_from_one_state(problem, dtype):
     """From JAX's state after 2 sweeps (x and comp not zero), one JAX sweep
     and one port sweep with JAX's draws replayed: the same components, and
-    x, y_resid, mu, sigma_g, sigma_e and pi to rtol 1e-5; the port's stats
-    are those of JAX's sweep_stats on JAX's new state."""
+    x, y_resid, mu, sigma_g, sigma_e and pi to rtol 1e-5 (bf16: 5e-3, and
+    atol 5e-3 of the largest x and y_resid); the port's stats are those of
+    JAX's sweep_stats on JAX's new state."""
     X, y = problem
+    rtol, atol = (BF16_TOL, BF16_TOL) if dtype == "bfloat16" else (RTOL, 1e-6)
+    wd = WORK[dtype]
     jdm, tdm = _designs(X, dtype)
     grams, jstate, cvars, key = _jax_state_after(jdm, y, 2)
     jarrays = _arrays(jstate)  # the JAX sweep donates its state
     tstate = convert.gibbs_state_from_arrays(jarrays)
-    assert tstate.x.dtype == TDT[dtype] and int((tstate.comp > 0).sum()) > 0
+    assert tstate.x.dtype == TDT[wd] and int((tstate.comp > 0).sum()) > 0
     draws = JaxDraws(0)
     draws.key = key
     key, ks = jax.random.split(key)
     jnew = jgibbs.gibbs_sweep(jdm, grams, jstate, cvars, ks, block=64)
     tgrams = tsampler.build_block_grams(tdm, block=64)
     tnew, st = tsampler.gibbs_sweep(tdm, tgrams, tstate, torch.as_tensor(np.array(cvars)),
-                                    draws, torch.as_tensor(y).to(TDT[dtype]), block=64)
+                                    draws, torch.as_tensor(y).to(TDT[wd]), block=64)
     np.testing.assert_array_equal(tnew.comp.numpy(), np.asarray(jnew.comp))
     scale = np.abs(np.asarray(jnew.x)).max()
-    np.testing.assert_allclose(tnew.x.numpy(), np.asarray(jnew.x), rtol=RTOL, atol=1e-6 * scale)
-    np.testing.assert_allclose(tnew.y_resid.numpy(), np.asarray(jnew.y_resid), rtol=RTOL,
-                               atol=1e-6 * np.abs(np.asarray(jnew.y_resid)).max())
+    np.testing.assert_allclose(tnew.x.numpy(), np.asarray(jnew.x), rtol=rtol, atol=atol * scale)
+    np.testing.assert_allclose(tnew.y_resid.numpy(), np.asarray(jnew.y_resid), rtol=rtol,
+                               atol=atol * np.abs(np.asarray(jnew.y_resid)).max())
     for f in ("mu", "sigma_g", "sigma_e", "pi"):
         np.testing.assert_allclose(getattr(tnew, f).numpy(), np.asarray(getattr(jnew, f)),
-                                   rtol=RTOL, err_msg=f)
-    jh2, jm, jvg = jsampler.sweep_stats(jdm, jnew, jnp.asarray(y, dtype=JDT[dtype]))
+                                   rtol=rtol, err_msg=f)
+    jh2, jm, jvg = jsampler.sweep_stats(jdm, jnew, jnp.asarray(y, dtype=JDT[wd]))
     assert st.m_incl == int(jm) == int(tnew.comp.gt(0).sum())
     assert st.enqueue_s > 0.0  # the host's block loop, timed by the sweep
     np.testing.assert_allclose([st.h2, st.vg, st.sigma_g, st.mu],
                                [float(jh2), float(jvg), float(jnew.sigma_g), float(jnew.mu)],
-                               rtol=RTOL)
+                               rtol=rtol)
     # the state handed in is left as it was
     assert np.array_equal(tstate.x.numpy(), jarrays["x"])
 
@@ -575,6 +588,7 @@ def test_chip_smoke_gibbs_workflow_runs_on_the_cpu(tmp_path):
 
 def test_chip_smoke_gibbs_parity_runs_on_the_cpu():
     """chip_smoke's card-against-CPU phase at a toy size with the CPU in the
-    card's place: the Grams, the sweeps and the comparisons run (the card
-    runs it at M = 16,384 x N = 2,048)."""
+    card's place, packed int4 and bf16: the Grams, the sweeps and the
+    comparisons run (the card runs it at M = 16,384 x N = 2,048)."""
     chip_smoke.phase_gibbs_parity("cpu", "int4", m=1024, n=256, sweeps=2)
+    chip_smoke.phase_gibbs_parity("cpu", "bf16", m=1024, n=256, sweeps=2)

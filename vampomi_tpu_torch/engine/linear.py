@@ -70,7 +70,9 @@ from ..glm.probit import newton_method_cov
 from ..io.bin_io import HostCopy, HostStager, iteration_file, write_marker_file
 from ..io.csv_writer import PositionalCSV
 from ..ops.cg import cg_solve
-from ..ops.eigen import EigenFactor, build_eigen, build_eigen_cached, cache_plausible, eigen_weights
+from ..ops.eigen import (
+    EigenFactor, build_eigen, build_eigen_cached, cache_plausible, eigen_dual_solve, eigen_weights,
+)
 from ..ops.operator import PACKED4_DTYPE, DesignMatrix, atx, ax, ax_batch, f64
 from ..ops.spectral import GramFactor, _trace_closed_forms, build_spectral, shift_inverse
 from ..prior.mixture import (
@@ -384,7 +386,7 @@ def _iteration_phase_eigen(dm: DesignMatrix, ef: EigenFactor, *args) -> dict:
     those of _iteration_phase_exact after `dense_solve`."""
     def dense_solve(av, gamw, gam2):
         d, T = eigen_weights(ef, gamw, gam2)      # d_i = 1/(gam2 + gamw lam_i)
-        return ef.U @ (d.to(dm.wd) * (ef.U.T @ av)), T
+        return eigen_dual_solve(ef, av, d), T
 
     return _iteration_phase_exact(dm, dense_solve, *args)
 

@@ -26,7 +26,7 @@ once: rank 0 alone builds it (or loads, or builds and writes the cache) and
 broadcasts the verdict, U and lam, so every rank holds the same factor by
 construction (vampomi_tpu/ops/eigen.py:875-932).  The JAX package also
 shards U's columns over its mesh (eigen.py:795-815); here every rank holds
-all of U (ROADMAP.md).
+all of U (ROADMAP.md queue 1 says why the split waits).
 """
 
 from __future__ import annotations
@@ -253,10 +253,17 @@ def eigen_solve(
     if av is None:
         av = ax(dm, vc)
     d, _ = eigen_weights(ef, tau, gam2)
-    t = ef.U.T @ av.to(wd)
-    q = ef.U @ (d.to(wd) * t)
+    q = eigen_dual_solve(ef, av, d)
     mu = (vc - tau_c * atx(dm, q)) / gam2_c
     return mu, q
+
+
+def eigen_dual_solve(ef: EigenFactor, av: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """q = S^{-1} av = U (d ∘ (U^T av)), with d = 1/(gam2 + tau lam) from
+    eigen_weights, in U's dtype: the one place that applies S^{-1} (both
+    engines' eigen iterations come here)."""
+    wd = ef.U.dtype
+    return ef.U @ (d.to(wd) * (ef.U.T @ av.to(wd)))
 
 
 def eigen_traces(ef: EigenFactor, mt, tau, gam2):
