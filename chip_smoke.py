@@ -282,6 +282,7 @@ from vampomi_tpu_torch.ops.operator import (  # noqa: E402
 from vampomi_tpu_torch.ops.packed4 import (  # noqa: E402
     atx_batch_packed4, atx_batch_packed4_plain, atx_packed4, atx_packed4_plain,
 )
+from vampomi_tpu_torch.ops import spectral  # noqa: E402
 from vampomi_tpu_torch.ops.spectral import build_spectral, shift_inverse  # noqa: E402
 from vampomi_tpu_torch.ops.stream import (  # noqa: E402
     stream_rowsum, stream_rowsum_plain, stream_sum, stream_sum_plain,
@@ -289,10 +290,10 @@ from vampomi_tpu_torch.ops.stream import (  # noqa: E402
 from vampomi_tpu_torch.scripts import conf_gibbs_init, pip  # noqa: E402
 from vampomi_tpu_torch.sim.data_sim import simulate_iid, write_fixture  # noqa: E402
 from vampomi_tpu_torch.tools import (  # noqa: E402
-    BF16_FLOPS, F32_FLOPS, KERNEL_CALLS, KERNEL_TOL, bound_ms, card_ms, codes64, exact_and_scale,
-    in_turns, matvec_bound, random_codes, rel_err,
+    BF16_FLOPS, F32_FLOPS, KERNEL_CALLS, KERNEL_TOL, bound_ms, card_info, card_ms, codes64,
+    exact_and_scale, in_turns, matvec_bound, random_codes, rel_err,
 )
-from vampomi_tpu_torch.tools import matvec_floor_probe, r4_probe  # noqa: E402
+from vampomi_tpu_torch.tools import dense_step_probe, matvec_floor_probe, r4_probe  # noqa: E402
 from vampomi_tpu_torch.utils.mathx import normal_cdf  # noqa: E402
 
 NS_M, NS_N = 1_048_576, 10_240          # the north-star shape (README.md, bench.py)
@@ -1292,36 +1293,91 @@ def warm_equals_eigen(out_dir: str, dtype: str, label: str, k: int) -> None:
         f"and dumps)")
 
 
+def host_syncs(fn) -> int:
+    """The host syncs of one fn() by torch's sync debug mode."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
 def spectral_routes(dm, tau: float, gam2: float, tag: str) -> None:
     """The spectral solver's dense step at the run's N and a shift of its last
-    iteration, timed alone (card_ms: means of back-to-back calls): the
-    factor alone, `shift_inverse` (the factor and W = L^{-1} by a triangular
-    solve against the identity, the route the engine takes), and the
-    factor and S^{-1} by torch.cholesky_inverse, the other route torch
-    offers; beside the least work, potrf + trtri = 2N^3/3 FLOPs at the f32
-    rate."""
+    iteration, timed alone (card_ms: means of back-to-back calls, each call
+    with its own host sync): the blocked pass the engine takes
+    (`shift_inverse` at default_nb(N) blocks), potrf alone, potrf and
+    W = L^{-1} by a triangular solve against the identity (the port's
+    route before the blocked pass, kept here as a yardstick), and potrf +
+    torch.cholesky_inverse; each beside the least work, potrf + trtri =
+    2N^3/3 FLOPs at the f32 rate.  Then the blocked pass at each diagonal
+    block count x leaf size of dense_step_probe.GRID (three samples each), its host
+    enqueue and the card's own time (tools/dense_step_probe.py own_time), its
+    host syncs (one), S^{-1} b and T against the other routes, and its raise
+    for tau < 0; beside them one N x N x N f32 GEMM, cuBLAS's own rate at
+    this N."""
+    check(not torch.backends.cuda.matmul.allow_tf32, f"{tag}: TF32 is on for matmuls")
     t0 = time.perf_counter()
     fac = build_spectral(dm)
     torch.cuda.synchronize()
     gram_s = time.perf_counter() - t0
-    n = fac.n
-    S = tau * fac.K + gam2 * torch.eye(n, device=fac.K.device)
-    L = torch.linalg.cholesky_ex(S)[0]
+    n, dev, nb = fac.n, fac.K.device, spectral.default_nb(fac.n)
+    shift = [torch.tensor(x, dtype=torch.float64, device=dev) for x in (tau, gam2)]
+    S = spectral._shifted(fac, *shift)
+    blocked = f"blocked shift_inverse (nb {nb}, base {spectral._FACTOR_BASE})"
     routes = {
+        blocked: lambda: shift_inverse(fac, *shift, nb=nb),
         "potrf": lambda: torch.linalg.cholesky_ex(S),
-        "shift_inverse (potrf + trsm)": lambda: shift_inverse(fac, tau, gam2),
+        "potrf + trsm against I": lambda: dense_step_probe.potrf_trsm(S),
         "potrf + cholesky_inverse": lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(S)[0]),
     }
     ms = {name: card_ms(fn, reps=3, warmup=1, calls=KERNEL_CALLS) for name, fn in routes.items()}
-    winv = shift_inverse(fac, tau, gam2)
-    T_inv = float(torch.cholesky_inverse(L).diagonal().double().sum())
     least = 1e3 * (2 * n**3 / 3) / F32_FLOPS
-    log(f"[{tag}] spectral dense step at N={n} (tau={tau:.6g}, gam2={gam2:.6g}; Gram rebuilt in "
-        f"{gram_s:.3f}s): " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
-        + f"; least work potrf + trtri 2N^3/3 at 67 TFLOP/s {least:.3f} ms; T = tr S^-1 "
-        f"{float(winv.T):.9g} by W, {T_inv:.9g} by cholesky_inverse")
-    check(abs(float(winv.T) / T_inv - 1.0) < 1e-4, f"{tag}: the two routes' traces disagree")
-    del fac, S, L, winv
+    gemm_ms = card_ms(lambda: S @ S, reps=3, warmup=1, calls=KERNEL_CALLS)  # cuBLAS's f32 rate
+    sweep = {}
+    for k, base in dense_step_probe.GRID:
+        fn = lambda: dense_step_probe.blocked(fac, shift, k, base)  # noqa: E731
+        fn()
+        sweep[f"nb {k} base {base}"] = [
+            round(card_ms(fn, reps=1, warmup=0, calls=KERNEL_CALLS), 3) for _ in range(3)]
+    enqueue, device_ms = dense_step_probe.own_time(fac, shift, nb)
+    syncs = host_syncs(lambda: shift_inverse(fac, *shift, nb=nb))
+    winv = shift_inverse(fac, *shift, nb=nb)
+    W_ref = dense_step_probe.potrf_trsm(S)
+    T_ref = torch.linalg.vector_norm(W_ref, dtype=torch.float64) ** 2
+    T_inv = float(torch.cholesky_inverse(torch.linalg.cholesky_ex(S)[0]).diagonal().double().sum())
+    b = torch.randn(n, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    x, x_ref = (v.double().cpu().numpy() for v in (winv.solve(b), W_ref.T @ (W_ref @ b)))
+    x_err = float(np.max(np.abs(x - x_ref)) / np.max(np.abs(x_ref)))
+    try:
+        shift_inverse(fac, -shift[0], shift[1], nb=nb)
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    card = card_info(dev)["nvidia_smi"]
+    log(f"[{tag}] spectral dense step at N={n} on {card} (tau={tau:.6g}, gam2={gam2:.6g}; "
+        f"Gram rebuilt in {gram_s:.3f}s; TF32 off): "
+        + ", ".join(f"{k} {v:.3f} ms ({100 * least / v:.1f}% of the least work)"
+                    for k, v in ms.items())
+        + f"; least work potrf + trtri 2N^3/3 at 67 TFLOP/s {least:.3f} ms; one N x N x N f32 "
+        f"GEMM by cuBLAS {gemm_ms:.3f} ms ({2 * n**3 / gemm_ms / 1e9:.1f} TFLOP/s); the "
+        f"blocked pass by nb x base, three samples (ms): {sweep}; its host enqueue {enqueue:.3f} ms "
+        f"({100 * enqueue / ms[blocked]:.1f}% of its time above), the card's own time (the "
+        f"host enqueued ahead) {device_ms:.3f} ms; host syncs of one "
+        f"call {syncs}; T = tr S^-1 {float(winv.T):.9g} by the blocked pass, "
+        f"{float(T_ref):.9g} by potrf + trsm, {T_inv:.9g} by cholesky_inverse; S^-1 b by the "
+        f"blocked pass against potrf + trsm: max |diff| {x_err:.3e} of max |x|; tau < 0 "
+        f"raised: {raised!r}")
+    check(syncs == 1, f"{tag}: {syncs} host syncs in one shift_inverse, want 1")
+    check(abs(float(winv.T) / T_inv - 1.0) < 1e-4, f"{tag}: the routes' traces disagree")
+    check(within(x, x_ref, 1e-4), f"{tag}: S^-1 b by the blocked pass and by potrf + trsm differ")
+    check("leading minor" in raised and "not positive definite" in raised,
+          f"{tag}: shift_inverse did not raise for tau < 0")
+    del fac, S, winv, W_ref
     torch.cuda.empty_cache()
 
 
@@ -1813,18 +1869,11 @@ def phase_gibbs_main(dtype: str, main: MainPath, out_dir: str, sweeps: int) -> d
     log(f"[gibbs {dtype}] one more sweep: the host enqueued its {nb} blocks in {enq:.4f}s "
         f"({enq * 1e6 / nb:.1f} us a block, no synchronise), wall {wall:.4f}s: enqueue "
         f"{100 * enq / wall:.1f}% of the wall")
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            gibbs.gibbs_sweep(dm, grams, state, cvars, draws, y_dev, block=GIBBS_B)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    syncs = host_syncs(lambda: gibbs.gibbs_sweep(dm, grams, state, cvars, draws, y_dev,
+                                                 block=GIBBS_B))
     log(f"[gibbs {dtype}] host syncs in one sweep of {nb} blocks (torch's sync debug mode): "
-        f"{len(syncs)}")
-    check(len(syncs) == 1, f"gibbs {dtype}: {len(syncs)} host syncs in a sweep, want 1 (its fetch)")
+        f"{syncs}")
+    check(syncs == 1, f"gibbs {dtype}: {syncs} host syncs in a sweep, want 1 (its fetch)")
     del grams, state
     torch.cuda.empty_cache()
     return counts
@@ -3327,8 +3376,7 @@ def main(argv=None) -> int:
         return cli_ranks_worker(args.cli_ranks)
     t_start = time.perf_counter()
     dev = phase_device()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
+    smi = card_info(torch.device(dev))["nvidia_smi"]
     timing = {}
 
     @contextlib.contextmanager

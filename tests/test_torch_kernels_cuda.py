@@ -15,6 +15,8 @@ sum |x||v|, below 1e-6; the tensor-core kernels' f32 sums do not round like
 IEEE adds, and are held to chip_smoke.py's 1e-5 (KERNEL_TOL); the integer
 read-floor sums are bitwise."""
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -368,19 +370,35 @@ def test_row_moments_long_rows_match_plain_bitwise_on_card(cuda_device, n):
     assert int(got[:, 1].max()) > 2**31
 
 
-@pytest.mark.parametrize("n", [512, 2048])
-def test_shift_inverse_on_card_matches_f64(cuda_device, n):
+@pytest.mark.parametrize("n,nb", [(512, None), (2048, 4), (2048, 16), (3000, None)])
+def test_shift_inverse_on_card_matches_f64(cuda_device, n, nb):
     """W = L^{-1} and T = tr S^{-1} in f32 on the card against the f64
-    factor on the CPU: W S W^T = I to f32 accuracy at these well-conditioned
-    shifts; a shift that is not positive definite raises."""
+    factor on the CPU, by the blocked pass: one leaf at N = 512, 4 and 16
+    blocks at 2,048, and default_nb's 4 ragged blocks of 750 rows, each a
+    recursion, at 3,000: W S W^T = I to f32 accuracy at these
+    well-conditioned shifts, with one host sync a call; a shift that is not
+    positive definite raises."""
     rng = np.random.default_rng(n)
     A = rng.standard_normal((n, 4 * n)) / np.sqrt(4 * n)
     K = A @ A.T
     tau, gam2 = 5.0, 0.3
     S = tau * K + gam2 * np.eye(n)
-    want = shift_inverse(GramFactor(K=torch.as_tensor(K)), tau, gam2)
-    got = shift_inverse(GramFactor(K=torch.as_tensor(K, dtype=torch.float32,
-                                                     device=cuda_device)), tau, gam2)
+    want = shift_inverse(GramFactor(K=torch.as_tensor(K)), tau, gam2, nb=nb)
+    fac = GramFactor(K=torch.as_tensor(K, dtype=torch.float32, device=cuda_device))
+    # the shift on the card, as the engines hold it (a Python number would
+    # add its own copy to the card); a first call sets cuSOLVER up
+    shift = [torch.tensor(x, dtype=torch.float64, device=cuda_device) for x in (tau, gam2)]
+    shift_inverse(fac, *shift, nb=nb)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = shift_inverse(fac, *shift, nb=nb)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    assert len(syncs) == 1
     W = got.W.double().cpu().numpy()
     np.testing.assert_allclose(W @ S @ W.T, np.eye(n), atol=2e-4)
     np.testing.assert_allclose(float(got.T), float(want.T), rtol=1e-5)

@@ -2,13 +2,15 @@
 spectral phase of engine/linear.py) against the JAX package's on the CPU.
 
 The dense pieces are compared in f64 on identical inputs (JAX state carried
-over by convert.py), including the JAX package's blocked factor (nb = 4 at
-N = 600); whole spectral trajectories in f64 against
+over by convert.py): the blocked factor, its recursion and the blocked
+Cholesky run the JAX package's algorithm at the same block counts; whole
+spectral trajectories in f64 against
 vampomi_tpu.engine.linear.infere_linear(lmmse_solver="spectral") to rtol 1e-6,
 as the eigen trajectory is held; the int8 design as the eigen int8 test holds
 it.  The solver choice: auto at N >= 2048 and Mt >= 4N runs spectral, and
 both eigen fallbacks run it instead of raising."""
 
+import json
 import os
 
 import jax.numpy as jnp
@@ -29,6 +31,7 @@ from vampomi_tpu_torch.io.csv_writer import read_positional_csv
 from vampomi_tpu_torch.ops import spectral as tspec
 from vampomi_tpu_torch.ops.operator import build_design
 from vampomi_tpu_torch.sim.data_sim import simulate_iid
+from vampomi_tpu_torch.tools import dense_step_probe
 
 from tests.test_torch_engine_linear import PHASE_RTOL, _arrays, _compare_outputs, cfg_kw
 
@@ -63,15 +66,23 @@ def wide_fac():
     return jspec.GramFactor(K=jnp.asarray(K)), tspec.GramFactor(K=torch.as_tensor(K))
 
 
+# the leaf size of _factor_diag: JAX's (the same algorithm as JAX's at the
+# same block count) and the port's own
+BASES = [jspec._FACTOR_BASE, tspec._FACTOR_BASE]
+
+
+@pytest.mark.parametrize("base", BASES)
 @pytest.mark.parametrize("tau,gam2", SHIFTS)
 @pytest.mark.parametrize("nb", [1, 4])
-def test_shift_inverse_matches_jax(pair, wide_fac, tau, gam2, nb):
-    """W = L^{-1} and T = ||W||_F^2 equal JAX's fused blocked pass in f64,
-    at N = 300 (nb blocks of the direct leaf) and N = 600."""
+def test_shift_inverse_matches_jax(pair, wide_fac, tau, gam2, nb, base, monkeypatch):
+    """W = L^{-1} and T = ||W||_F^2 equal JAX's fused blocked pass in f64 at
+    the same block count, at N = 300 and N = 600, with JAX's leaf size and
+    the port's."""
+    monkeypatch.setattr(tspec, "_FACTOR_BASE", base)
     _, jfac, _, tfac = pair
     for jf, tf in ((jfac, tfac), wide_fac):
         want = jspec.shift_inverse(jf, tau, gam2, nb=nb)
-        got = tspec.shift_inverse(tf, tau, gam2)
+        got = tspec.shift_inverse(tf, tau, gam2, nb=nb)
         W = np.asarray(want.W)
         np.testing.assert_allclose(got.W.numpy(), W, rtol=1e-9, atol=1e-11 * np.abs(W).max())
         np.testing.assert_allclose(float(got.T), float(want.T), rtol=1e-12)
@@ -79,6 +90,69 @@ def test_shift_inverse_matches_jax(pair, wide_fac, tau, gam2, nb):
         b = np.random.default_rng(3).normal(size=tf.n)
         np.testing.assert_allclose(got.solve(torch.as_tensor(b)).numpy(),
                                    np.asarray(want.solve(jnp.asarray(b))), rtol=1e-9, atol=1e-12)
+
+
+def _spd(n: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((n, 2 * n)) / np.sqrt(2 * n)
+    return 2.5 * (A @ A.T) + 0.7 * np.eye(n)
+
+
+# the leaves' offsets by leaf size and block: at JAX's 256 one leaf at 256,
+# a split 128 + 129 at 257, and at 700 two levels (384 = 256 + 128, then
+# 316 = 256 + 60); at the port's 512 one leaf up to 512, and 384 + 316 at 700
+LEAVES = {256: {256: [0], 257: [0, 128], 700: [0, 256, 384, 640]},
+          512: {256: [0], 257: [0], 700: [0, 384]}}
+
+
+@pytest.mark.parametrize("base", BASES)
+@pytest.mark.parametrize("b", [256, 257, 700])
+def test_factor_diag_matches_jax(b, base, monkeypatch):
+    """The 2x2 recursion's L and W against JAX's _factor_diag in f64, with
+    JAX's leaf size (the same recursion) and the port's."""
+    monkeypatch.setattr(tspec, "_FACTOR_BASE", base)
+    S = _spd(b, b)
+    jL, jW = (np.asarray(x) for x in jspec._factor_diag(jnp.asarray(S)))
+    A, W, infos = torch.as_tensor(S).clone(), torch.zeros(b, b, dtype=torch.float64), []
+    tspec._factor_diag(A, W, infos)
+    assert [off for off, _ in infos] == LEAVES[base][b]
+    assert all(int(i) == 0 for _, i in infos)
+    for got, want in ((torch.tril(A).numpy(), jL), (W.numpy(), jW)):
+        np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12 * np.abs(want).max())
+
+
+def test_blocked_cholesky_matches_jax():
+    """_blocked_cholesky at N = 600 over 4 blocks against JAX's in f64."""
+    S = _spd(600, 1)
+    want = np.asarray(jspec._blocked_cholesky(jnp.asarray(S), 4))
+    infos = []
+    got = tspec._blocked_cholesky(torch.as_tensor(S).clone(), 4, infos).numpy()
+    assert [off for off, _ in infos] == [0, 150, 300, 450]
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("tau,gam2", SHIFTS)
+def test_shift_inverse_ragged_blocks_match_jax(tau, gam2):
+    """N = 601 over 4 blocks (150, 150, 150, 151 rows, each one leaf at
+    either leaf size): W, T and a solve against JAX's in f64."""
+    K = _spd(601, 2)
+    want = jspec.shift_inverse(jspec.GramFactor(K=jnp.asarray(K)), tau, gam2, nb=4)
+    got = tspec.shift_inverse(tspec.GramFactor(K=torch.as_tensor(K)), tau, gam2, nb=4)
+    W = np.asarray(want.W)
+    np.testing.assert_allclose(got.W.numpy(), W, rtol=1e-9, atol=1e-11 * np.abs(W).max())
+    np.testing.assert_allclose(float(got.T), float(want.T), rtol=1e-12)
+    b = np.random.default_rng(4).normal(size=601)
+    np.testing.assert_allclose(got.solve(torch.as_tensor(b)).numpy(),
+                               np.asarray(want.solve(jnp.asarray(b))), rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("n,port,jax", [(1, 1, 1), (255, 1, 1), (2047, 1, 1), (2048, 4, 8),
+                                        (4095, 4, 8), (4096, 4, 16), (8191, 4, 16),
+                                        (8192, 8, 16), (10240, 8, 16), (16384, 8, 16)])
+def test_default_nb_against_jax(n, port, jax):
+    """The port's block counts, tuned on an H100, against the JAX package's:
+    the same single block below N = 2048, fewer blocks from there."""
+    assert (tspec.default_nb(n), jspec.default_nb(n)) == (port, jax)
 
 
 @pytest.mark.parametrize("tau,gam2", SHIFTS)
@@ -143,6 +217,83 @@ def test_failed_cholesky_raises_never_nan(pair, dtype):
             fn(fac, -2.5, 0.7)
     with pytest.raises(RuntimeError, match="leading minor"):
         tspec.spectral_traces(fac, 500, -2.5, 0.7)
+
+
+@pytest.mark.parametrize("base", BASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_factor_failing_in_the_third_block_names_its_minor(dtype, base, monkeypatch):
+    """S = L0 D L0^T with L0 unit lower triangular and D = I but -1 at row
+    350: every leading minor through order 350 is positive, order 351 is
+    not.  Over 4 blocks of 150 rows the first two factor and the third
+    fails; the raise names global minor 351 (the block's offset 300 plus
+    its leaf's info 51), as it does over the single block's recursion (at
+    leaf size 256 the leaf at offset 256 reports 95, at 512 the leaf at 0
+    reports 351), the blocked Cholesky and the trace; nothing returns."""
+    monkeypatch.setattr(tspec, "_FACTOR_BASE", base)
+    n, p = 600, 350
+    rng = np.random.default_rng(8)
+    L0 = np.eye(n) + np.tril(rng.standard_normal((n, n)), -1) * 0.3 / np.sqrt(n)
+    d = np.ones(n)
+    d[p] = -1.0
+    S = (L0 * d) @ L0.T
+    fac = tspec.GramFactor(K=torch.as_tensor(S - 0.5 * np.eye(n), dtype=dtype))
+    calls = [lambda: tspec.shift_inverse(fac, 1.0, 0.5, nb=4),
+             lambda: tspec.shift_inverse(fac, 1.0, 0.5),
+             lambda: tspec.shift_cholesky(fac, 1.0, 0.5),
+             lambda: tspec.spectral_traces(fac, 2 * n, 1.0, 0.5)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match=f"leading minor {p + 1} of {n} .*not positive"):
+            call()
+    infos = []
+    A = fac.K.clone()
+    A.diagonal().add_(0.5)
+    tspec._shift_inverse_body(A, 4, infos)
+    assert [int(i) for _, i in infos[:3]] == [0, 0, p + 1 - 300]
+
+
+@pytest.mark.parametrize("model", ["linear", "bin_class"])
+def test_engines_take_the_blocked_route(fx, tmp_path, monkeypatch, model):
+    """Both engines' spectral iterations run shift_inverse's blocked body at
+    default_nb(N) blocks, once an iteration."""
+    from vampomi_tpu_torch.engine import probit as tprob
+
+    calls, body = [], tspec._shift_inverse_body
+
+    def spy(S, nb, infos):
+        calls.append((S.shape[0], nb))
+        return body(S, nb, infos)
+
+    monkeypatch.setattr(tspec, "_shift_inverse_body", spy)
+    dm = build_design(fx.X.T, compute_dtype=torch.float64, device="cpu")
+    cfg = RunConfig(**cfg_kw(tmp_path, iterations=2, lmmse_solver="spectral", device="cpu",
+                             model=model))
+    if model == "linear":
+        res = tlin.infere_linear(dm, fx.y, cfg, write_outputs=False)
+    else:
+        res = tprob.infere_bin_class(dm, (fx.y > 0).astype(np.float64), cfg,
+                                     write_outputs=False)
+    assert res.solver == "spectral" and np.all(np.isfinite(res.x1_hat_scaled))
+    assert calls == [(300, tspec.default_nb(300))] * 2
+
+
+def test_dense_step_probe_small_on_cpu(capsys):
+    """The dense-step probe at --small on the CPU checks every (blocks, leaf
+    size) pair against potrf + trsm and times nothing."""
+    assert dense_step_probe.main(["--small", "--device", "cpu", "--seed", "3"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["tool"] == "dense_step_probe" and summary["device"]["platform"] == "cpu"
+    assert summary["checks_pass"] and set(summary["checks"]) == {"300", "700"}
+    for c in summary["checks"].values():
+        assert len(c) == len(dense_step_probe.GRID)
+        assert all(v < dense_step_probe.CHECK_TOL for d in c.values() for v in d.values())
+    assert set(summary["results"].values()) == {"not measured"}
+    assert summary["profile"] == "not measured"
+
+
+def test_dense_step_probe_cuda_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        dense_step_probe.main(["--small"])
 
 
 @pytest.fixture(scope="module")

@@ -74,7 +74,9 @@ from ..ops.eigen import (
     EigenFactor, build_eigen, build_eigen_cached, cache_plausible, eigen_dual_solve, eigen_weights,
 )
 from ..ops.operator import PACKED4_DTYPE, DesignMatrix, atx, ax, ax_batch, f64
-from ..ops.spectral import GramFactor, _trace_closed_forms, build_spectral, shift_inverse
+from ..ops.spectral import (
+    GramFactor, _trace_closed_forms, build_spectral, default_nb, shift_inverse,
+)
 from ..prior.mixture import (
     MixturePrior, em_update, g1, g1d, init_prior, merge_components_device,
 )
@@ -394,10 +396,10 @@ def _iteration_phase_eigen(dm: DesignMatrix, ef: EigenFactor, *args) -> dict:
 def _iteration_phase_spectral(dm: DesignMatrix, fac: GramFactor, *args) -> dict:
     """The exact iteration with the spectral LMMSE solve (JAX
     engine/linear.py:255-365): S = gamw K + gam2 I factored and inverted
-    every iteration (ops/spectral.py shift_inverse, ~2N^3/3 FLOPs at the
-    least), S^{-1} A v = W^T (W A v), T = ||W||_F^2."""
+    every iteration (ops/spectral.py shift_inverse, the fused blocked pass,
+    ~2N^3/3 FLOPs), S^{-1} A v = W^T (W A v), T = ||W||_F^2."""
     def dense_solve(av, gamw, gam2):
-        winv = shift_inverse(fac, gamw, gam2)
+        winv = shift_inverse(fac, gamw, gam2, nb=default_nb(fac.n))
         return winv.solve(av), winv.T
 
     return _iteration_phase_exact(dm, dense_solve, *args)

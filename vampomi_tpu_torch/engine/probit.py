@@ -71,7 +71,7 @@ from ..io.bin_io import HostCopy, HostStager
 from ..ops.cg import cg_solve
 from ..ops.eigen import eigen_solve, eigen_traces
 from ..ops.operator import PACKED4_DTYPE, DesignMatrix, atx, ax, ax_batch, f64
-from ..ops.spectral import shift_inverse, spectral_solve, spectral_traces
+from ..ops.spectral import default_nb, shift_inverse, spectral_solve, spectral_traces
 from ..prior.mixture import MixturePrior, g1, g1d, init_prior
 from ..sharding import all_reduce_, all_reduce_many, broadcast_, gather_m, is_writer, local_rows
 from ..utils.async_writer import AsyncWriter
@@ -175,7 +175,7 @@ def _probit_phase(
             x2_hat, z2_hat = eigen_solve(dm, fac, v, tau2, gam2, av=av)
             tr_qinv, _ = eigen_traces(fac, dm.mt, tau2, gam2)
         else:
-            winv = shift_inverse(fac, tau2, gam2)
+            winv = shift_inverse(fac, tau2, gam2, nb=default_nb(fac.n))
             x2_hat, z2_hat = spectral_solve(dm, fac, v, tau2, gam2, av=av, winv=winv)
             tr_qinv, _ = spectral_traces(fac, dm.mt, tau2, gam2, winv=winv)
         alpha2 = gam2 * tr_qinv / dm.mt

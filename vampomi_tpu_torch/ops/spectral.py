@@ -1,7 +1,6 @@
 """The Gram-space (Woodbury) LMMSE solver: the Gram matrix K = A A^T, the
 per-iteration factor of the shifted dual S = gam2 I + tau K, the exact solve
-and the trace closed forms (port of vampomi_tpu/ops/spectral.py:64-272,
-407-518).
+and the trace closed forms (port of vampomi_tpu/ops/spectral.py).
 
 K is built once per dataset, blocked over markers:
 
@@ -24,19 +23,30 @@ make the LMMSE solve and both VAMP traces exact:
     tr Q^{-1}       = T + (Mt - N) / gam2
     tr A^T A Q^{-1} = (N - gam2 T) / tau
 
-The factor and the inverse are cuSOLVER/cuBLAS calls through torch
-(`cholesky_ex`, then a triangular solve against the identity); the JAX
-package's blocked factor with its explicit-inverse panels (`_factor_diag`,
-`_shift_inverse_body`, `_blocked_cholesky`, `default_nb`, spectral.py:275-404)
-works around the TPU's row-sequential Cholesky and is not ported.  A factor
-that fails (S not positive definite in the work dtype) raises: nothing here
-returns NaNs or switches to another solver.
+`shift_inverse` is the JAX package's fused blocked pass (spectral.py:237-404:
+`default_nb`, `_factor_diag`, `_shift_inverse_body`; the block counts and the
+leaf size are the port's, see _FACTOR_BASE): default_nb(N) diagonal blocks,
+each factored and inverted by a 2x2 recursion down to leaves of at most
+_FACTOR_BASE rows (cuSOLVER's potrf and a triangular solve against the
+leaf's identity), panels L[r, i] = A[r, i] W_ii^T, the trailing update on the
+lower block triangle and W built row group by row group — about 2N^3/3 FLOPs
+(N^3/3 of factor, N^3/3 of inverse), nearly all of it f32 GEMMs with TF32
+off.  The GEMMs run in eager PyTorch, so every block is a view of S (updated
+in place; it ends as L below its diagonal blocks) or of one (N, N) W, and
+each of JAX's inner block sums that runs over a contiguous range is one GEMM:
+about nb^2 GEMMs a call.  `shift_cholesky` is the blocked right-looking
+Cholesky alone (`_blocked_cholesky`, 8 blocks from N = 2048, as JAX's).  A
+factor that fails (S not positive definite in the work dtype) raises, naming
+the global leading minor: the leaves' infos stay on the device and are read
+with one host sync a call; nothing returns NaNs or switches to another
+solver.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..sharding import all_reduce_many
@@ -104,26 +114,54 @@ class ShiftInverse(NamedTuple):
         return self.W.T @ (self.W @ b)
 
 
-def shift_cholesky(fac: GramFactor, tau, gam2) -> torch.Tensor:
-    """L with L L^T = S = gam2 I + tau K, in the factor's dtype.  Raises when
-    the factor fails (the leading minor cuSOLVER or LAPACK reports is not
-    positive in the work dtype)."""
-    wd, dev = fac.K.dtype, fac.K.device
-    S = f64(tau, dev).to(wd) * fac.K
-    S.diagonal().add_(f64(gam2, dev).to(wd))
-    L, info = torch.linalg.cholesky_ex(S)
-    minor = int(info)
-    if minor != 0:
-        raise RuntimeError(
-            f"Cholesky of S = gam2 I + tau K failed at leading minor {minor} of "
-            f"{fac.n} (tau={float(tau):.6g}, gam2={float(gam2):.6g}, "
-            f"{str(fac.K.dtype).replace('torch.', '')}): S is not positive "
-            "definite in the work dtype")
-    return L
+# The leaf size of _factor_diag and the block counts of default_nb are the
+# port's own: on an H100 (f32) the JAX package's pair (256; 16 blocks from
+# N = 4096, 8 from 2048), tuned on a TPU, was 2-10% slower at N = 10,240 and
+# 16,384 and 1.4-3.2x slower at 2,048 and 4,096, where the host's launches of
+# many small blocks set the pace.  A leaf is cholesky_ex and a triangular
+# solve; _FACTOR_BASE stays at 256 or more, so that an S of N <= 256 is one
+# leaf, as in the JAX package.
+_FACTOR_BASE = 512
+
+
+def default_nb(n: int) -> int:
+    """Diagonal blocks of shift_inverse's factor: one below N = 2048, where
+    the recursion of _factor_diag alone factors S (as the JAX package's
+    rule, vampomi_tpu/ops/spectral.py:399-404), 4 from 2048 and 8 from 8192
+    (the JAX package: 8 from 2048, 16 from 4096)."""
+    return 8 if n >= 8192 else (4 if n >= 2048 else 1)
+
+
+def _spans(n: int, nb: int) -> list[tuple[int, int]]:
+    """The non-empty [lo, hi) row ranges of nb blocks over n, on JAX's
+    bounds (np.linspace(0, n, nb + 1).astype(int))."""
+    bounds = np.linspace(0, n, max(1, min(nb, n)) + 1).astype(int)
+    return [(int(lo), int(hi)) for lo, hi in zip(bounds[:-1], bounds[1:]) if hi > lo]
+
+
+def _shifted(fac: GramFactor, tau, gam2) -> torch.Tensor:
+    """S = gam2 I + tau K, a fresh tensor in the factor's dtype."""
+    dev = fac.K.device
+    S = f64(tau, dev).to(fac.K.dtype) * fac.K
+    S.diagonal().add_(f64(gam2, dev).to(fac.K.dtype))
+    return S
+
+
+def _check_factor(infos: list, fac: GramFactor, tau, gam2) -> None:
+    """Raise if a leaf's cholesky_ex failed, with the global leading minor
+    (the first failing leaf's offset plus its info): one host sync reads
+    every leaf's info."""
+    for (off, _), info in zip(infos, torch.stack([i for _, i in infos]).tolist()):
+        if info > 0:
+            raise RuntimeError(
+                f"Cholesky of S = gam2 I + tau K failed at leading minor {off + info} of "
+                f"{fac.n} (tau={float(tau):.6g}, gam2={float(gam2):.6g}, "
+                f"{str(fac.K.dtype).replace('torch.', '')}): S is not positive "
+                "definite in the work dtype")
 
 
 def _inverse_factor(L: torch.Tensor) -> torch.Tensor:
-    """W = L^{-1} by a triangular solve against the identity."""
+    """W = L^{-1} of a leaf by a triangular solve against its identity."""
     eye = torch.eye(L.shape[0], dtype=L.dtype, device=L.device)
     return torch.linalg.solve_triangular(L, eye, upper=False)
 
@@ -133,12 +171,109 @@ def _frobenius2(W: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(W, dtype=torch.float64) ** 2
 
 
-def shift_inverse(fac: GramFactor, tau, gam2) -> ShiftInverse:
-    """W = L^{-1} and T = ||W||_F^2 for S = gam2 I + tau K = L L^T — what one
-    spectral iteration needs from the N x N problem (the JAX package's fused
-    blocked pass, spectral.py:237-272, as a factor and a triangular solve)."""
-    W = _inverse_factor(shift_cholesky(fac, tau, gam2))
+def _trailing_update(S: torch.Tensor, P: torch.Tensor, spans: list) -> None:
+    """S[r, s] -= P[r] P[s]^T in place for the blocks r >= s of `spans`, where
+    P holds the rows from spans[0]'s start down: one GEMM a column block over
+    its rows to the end."""
+    top = spans[0][0]
+    for lo, hi in spans:
+        S[lo:, lo:hi].addmm_(P[lo - top:], P[lo - top:hi - top].T, alpha=-1)
+
+
+def _factor_diag(A: torch.Tensor, W: torch.Tensor, infos: list, offset: int = 0) -> None:
+    """L and W = L^{-1} of an SPD block by the JAX package's 2x2 recursion
+    (vampomi_tpu/ops/spectral.py:275-310), in place:
+
+        A = [[A11, A21^T], [A21, A22]],  L11 W11 from A11,
+        P = A21 W11^T,  Sc = A22 - P P^T,  L22 W22 from Sc,
+        L = [[L11, 0], [P, L22]],  W = [[W11, 0], [-W22 P W11, W22]].
+
+    A becomes L in its lower triangle (the blocks above its diagonal blocks
+    keep stale values) and W, zero on entry, receives W.  A leaf (at most
+    _FACTOR_BASE rows) is cholesky_ex and a triangular solve against its
+    identity; its (offset, info) goes to `infos`, read by _check_factor."""
+    b = A.shape[0]
+    if b <= _FACTOR_BASE:
+        L, info = torch.linalg.cholesky_ex(A)
+        infos.append((offset, info))
+        W.copy_(_inverse_factor(L))
+        A.copy_(L)
+        return
+    h = min((b // 2 + 127) // 128 * 128, b - 1)  # JAX's lane-aligned split
+    W11, W22 = W[:h, :h], W[h:, h:]
+    _factor_diag(A[:h, :h], W11, infos, offset)
+    P = A[h:, :h] @ W11.T
+    A[h:, h:].addmm_(P, P.T, alpha=-1)
+    A[h:, :h].copy_(P)
+    _factor_diag(A[h:, h:], W22, infos, offset + h)
+    W[h:, :h].addmm_(W22, P @ W11, beta=0, alpha=-1)
+
+
+def _shift_inverse_body(S: torch.Tensor, nb: int, infos: list) -> torch.Tensor:
+    """W = L^{-1} of S = L L^T by the JAX package's right-looking factor and
+    left-looking inverse (vampomi_tpu/ops/spectral.py:313-369) over nb
+    diagonal blocks.  S is overwritten: below its diagonal blocks it ends as
+    L.  Step i factors block i (W_ii by _factor_diag), forms the panel
+    L[r, i] = A[r, i] W_ii^T of every r > i as one GEMM, updates the lower
+    block triangle after it, then fills row group i of W:
+    W[i, j] = -W_ii sum_{k=j}^{i-1} L[i, k] W[k, j], one GEMM over k a j."""
+    n = S.shape[0]
+    spans = _spans(n, nb)
+    # column-major, as a leaf's triangular solve returns it: a single leaf
+    # (N <= _FACTOR_BASE) gives W, its products and its norm the bits of
+    # that solve's own output
+    W = torch.zeros_like(S).mT
+    for i, (lo, hi) in enumerate(spans):
+        Wii = W[lo:hi, lo:hi]
+        _factor_diag(S[lo:hi, lo:hi], Wii, infos, lo)
+        if hi < n:
+            P = S[hi:, lo:hi] @ Wii.T
+            _trailing_update(S, P, spans[i + 1:])
+            S[hi:, lo:hi].copy_(P)
+        for jlo, jhi in spans[:i]:
+            W[lo:hi, jlo:jhi].addmm_(Wii, S[lo:hi, jlo:lo] @ W[jlo:lo, jlo:jhi],
+                                     beta=0, alpha=-1)
+    return W
+
+
+def shift_inverse(fac: GramFactor, tau, gam2, nb: int | None = None) -> ShiftInverse:
+    """W = L^{-1} and T = ||W||_F^2 (f64) for S = gam2 I + tau K = L L^T —
+    what one spectral iteration needs from the N x N problem — by the fused
+    blocked pass over nb diagonal blocks (default_nb(N) unless given).
+    Raises when the factor fails."""
+    infos: list = []
+    W = _shift_inverse_body(_shifted(fac, tau, gam2), nb or default_nb(fac.n), infos)
+    _check_factor(infos, fac, tau, gam2)
     return ShiftInverse(W=W, T=_frobenius2(W))
+
+
+def _blocked_cholesky(S: torch.Tensor, nb: int, infos: list) -> torch.Tensor:
+    """L of S = L L^T by the JAX package's right-looking blocked Cholesky
+    (vampomi_tpu/ops/spectral.py:372-396), in place in S: each diagonal block
+    by cholesky_ex (its (offset, info) to `infos`), its panel by a
+    triangular solve, the trailing update on the lower block triangle."""
+    n = S.shape[0]
+    spans = _spans(n, nb)
+    for i, (lo, hi) in enumerate(spans):
+        Ljj, info = torch.linalg.cholesky_ex(S[lo:hi, lo:hi])
+        infos.append((lo, info))
+        S[lo:hi, lo:hi].copy_(Ljj)
+        if hi < n:
+            P = torch.linalg.solve_triangular(Ljj.T, S[hi:, lo:hi], upper=True, left=False)
+            _trailing_update(S, P, spans[i + 1:])
+            S[hi:, lo:hi].copy_(P)
+    return S.tril_()
+
+
+def shift_cholesky(fac: GramFactor, tau, gam2) -> torch.Tensor:
+    """L with L L^T = S = gam2 I + tau K, in the factor's dtype: one
+    cholesky_ex below N = 2048, 8 blocks of _blocked_cholesky from there, as
+    the JAX package.  Raises when the factor fails (the leading minor
+    cuSOLVER or LAPACK reports is not positive in the work dtype)."""
+    infos: list = []
+    L = _blocked_cholesky(_shifted(fac, tau, gam2), 8 if fac.n >= 2048 else 1, infos)
+    _check_factor(infos, fac, tau, gam2)
+    return L
 
 
 def spectral_solve(
@@ -175,14 +310,29 @@ def spectral_traces(fac: GramFactor, mt, tau, gam2, L: torch.Tensor | None = Non
                     winv: ShiftInverse | None = None):
     """Exact (tr Q^{-1}, tr(A^T A Q^{-1})) over the Mt markers, f64, from
     T = tr S^{-1}: the inverse factor's T when `winv` is given, else
-    ||L^{-1}||_F^2 of the shift Cholesky `L` (factored here if not given)."""
+    ||L^{-1}||_F^2 of the shift Cholesky `L` (factored here if not given) by
+    the JAX package's blocked forward substitution
+    (vampomi_tpu/ops/spectral.py:452-506): over 8 column groups j, row block
+    i of L^{-1}[:, j] solves L_ii X_i = [i == j] I - sum_{k=j}^{i-1} L_ik X_k
+    (the sum one GEMM), each group's squares summed in f64."""
     if winv is not None:
-        T = winv.T
-    else:
-        if L is None:
-            L = shift_cholesky(fac, tau, gam2)
-        T = _frobenius2(_inverse_factor(L))
-    return _trace_closed_forms(T, fac.n, mt, tau, gam2)
+        return _trace_closed_forms(winv.T, fac.n, mt, tau, gam2)
+    if L is None:
+        L = shift_cholesky(fac, tau, gam2)
+    n = fac.n
+    T = torch.zeros((), dtype=torch.float64, device=L.device)
+    spans = _spans(n, 8)
+    for j, (jlo, jhi) in enumerate(spans):
+        X = torch.empty((n - jlo, jhi - jlo), dtype=L.dtype, device=L.device)
+        for lo, hi in spans[j:]:
+            if lo == jlo:
+                acc = torch.eye(hi - lo, dtype=L.dtype, device=L.device)
+            else:
+                acc = -(L[lo:hi, jlo:lo] @ X[:lo - jlo])
+            X[lo - jlo:hi - jlo] = torch.linalg.solve_triangular(L[lo:hi, lo:hi], acc,
+                                                                 upper=False)
+        T = T + _frobenius2(X)
+    return _trace_closed_forms(T, n, mt, tau, gam2)
 
 
 def _trace_closed_forms(T, n, mt, tau, gam2):

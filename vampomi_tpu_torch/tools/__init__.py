@@ -3,8 +3,9 @@ scripts under tools/, and what they share with chip_smoke.py.
 
     python -m vampomi_tpu_torch.tools.matvec_floor_probe [--device cuda|cpu] [--small] [--seed S] [--out PATH]
     python -m vampomi_tpu_torch.tools.r4_probe [--device cuda|cpu] [--small] [--seed S]
+    python -m vampomi_tpu_torch.tools.dense_step_probe [--device cuda|cpu] [--small] [--seed S]
 
-Each tool checks every kernel it times against its plain version and the
+Each matvec tool checks every kernel it times against its plain version and the
 exact f64 product first, then times kernel and plain with CUDA events in
 turns (plain, kernel, kernel, plain), and prints one JSON summary line last,
 with the card's name and power limit as nvidia-smi reports them.  A
@@ -12,7 +13,8 @@ kernel's sample is the mean of KERNEL_CALLS back-to-back calls, so the
 host's launch time does not count as the card's.  With
 `--device cpu` the wrappers run their plain versions and nothing is timed:
 no time measured on a CPU is reported.  `--device cuda` without a card
-raises; there is no fallback to the CPU.
+raises; there is no fallback to the CPU.  The dense-step probe checks and
+times the spectral solver's blocked factor the same way (its docstring).
 """
 
 from __future__ import annotations
