@@ -3289,13 +3289,22 @@ def device_busy(events: list) -> tuple[float, float]:
     return busy / 1e3, span / 1e3
 
 
+def _counted(rec: dict) -> dict:
+    """A _trace.jsonl record without its walls, which differ from run to
+    run: `seconds` goes, and of `phases` only the counted "passes" stay."""
+    rec = {key: v for key, v in rec.items() if key != "seconds"}
+    rec["phases"] = {"passes": rec["phases"]["passes"]}
+    return rec
+
+
 def files_profile(dev: str, log_dir: str, n: int = 2_000, m: int = 8_000, iters: int = 8) -> dict:
     """Phase 11 (c): phase 4's int8 eigen CLI run (its fixture, seed and
     flags) here, then with --profile-dir in a subprocess with a deadline:
     the trace parses as JSON and names the kernels of atx_int8.cu and
     ax_batch_int8.cu (xtw.cuh on int8 codes), and every output file is the
     run's without the flag, byte for byte (the trace.jsonl telemetry
-    without its walls and rates); the card's busy share of the trace."""
+    without its walls: its counted passes stay); the card's busy share of
+    the trace."""
     with tempfile.TemporaryDirectory(prefix="vampomi_prof_") as d:
         fx = simulate_iid(n=n, m=m, lam=0.1, h2=0.8, seed=SEED)
         paths = write_fixture(fx, d, "ex")
@@ -3330,8 +3339,7 @@ def files_profile(dev: str, log_dir: str, n: int = 2_000, m: int = 8_000, iters:
         for f in files:
             a, b = (_bytes(os.path.join(d, s, f)) for s in ("plain", "prof"))
             if f.endswith("_trace.jsonl"):
-                a, b = ([{key: v for key, v in json.loads(ln).items()
-                          if key not in ("seconds", "gbps")} for ln in x.decode().splitlines()]
+                a, b = ([_counted(json.loads(ln)) for ln in x.decode().splitlines()]
                         for x in (a, b))
             check(a == b, f"profile: {f} differs with --profile-dir")
         size = sum(os.path.getsize(os.path.join(trace_dir, t)) for t in os.listdir(trace_dir)) / 1e6

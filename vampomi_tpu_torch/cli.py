@@ -121,7 +121,8 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--checkpoint-file", default="")
     x.add_argument("--resume-file", default="")
     x.add_argument("--trace", type=int, default=1,
-                   help="write <out>_trace.jsonl per-iteration telemetry")
+                   help="write <out>_trace.jsonl: each iteration's wall, phase "
+                        "walls and passes over X")
     x.add_argument("--init-conf", default="",
                    help="warm-start .conf from scripts/conf_gibbs_init.py: sets "
                         "rho, h2, probs and vars; explicit --probs/--vars "

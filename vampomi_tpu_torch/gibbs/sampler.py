@@ -10,11 +10,11 @@ with A the standardized operator (ops/operator.py) and x internal-scale
 (= beta * sqrt(N)), the engine's conventions.  Markers are walked in blocks
 of B, as in the JAX package:
 
-  1. r_b = A_b y_resid               `atx` on the block's rows of X
+  1. r_b = A_b y_resid               `atx_block` on the block's rows of X
   2. the B sequential draws, correcting the local correlations through the
      precomputed block Gram G_b = A_b A_b^T (`gibbs_block_update`, a CUDA
      kernel on the card: one launch a block)
-  3. y_resid -= A_b dx_b             `ax` on the block's rows of X
+  3. y_resid -= A_b dx_b             `ax_block` on the block's rows of X
 
 so a sweep reads X twice and stays an exact systematic-scan Gibbs chain.
 
@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from ..ops.gibbs_block import gibbs_block_update
-from ..ops.operator import PACKED4_DTYPE, QUANTIZED, DesignMatrix, atx, ax
+from ..ops.operator import PACKED4_DTYPE, QUANTIZED, DesignMatrix, atx_block, ax_block
 from ..ops.packed4 import unpack_rows
 
 F64 = torch.float64
@@ -114,7 +114,8 @@ class TorchDraws:
 def _block_dm(dm: DesignMatrix, b: int, block: int) -> DesignMatrix:
     """The design restricted to marker block b: row views of X and the
     vectors (contiguous, no copy), so the block passes reuse ops.operator's
-    ax / atx as they are."""
+    products as they are (ax_block / atx_block: a block is no pass over X,
+    so they count none and open no span)."""
     sl = slice(b * block, (b + 1) * block)
     return dm._replace(X=dm.X[sl], mave=dm.mave[sl], msig=dm.msig[sl], mmask=dm.mmask[sl])
 
@@ -227,11 +228,11 @@ def gibbs_sweep(
     for b in range(nb):
         d = _block_dm(dm, b, block)
         sl = slice(b * block, (b + 1) * block)
-        r0 = atx(d, y_resid)                           # pass 1 over X_b
+        r0 = atx_block(d, y_resid)                     # pass 1 over X_b
         xb0 = x[sl]
         xb, compb = block_update(grams[b], r0, xb0, d.mmask, U[b], Z[b], state.pi, cvars,
                                  state.sigma_g, state.sigma_e)
-        y_resid -= ax(d, xb - xb0)                     # pass 2 over X_b
+        y_resid -= ax_block(d, xb - xb0)               # pass 2 over X_b
         x[sl] = xb
         comp[sl] = compb
     enqueue_s = time.perf_counter() - t0

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..sharding import Shard, broadcast_, broadcast_from0
+from ..utils.telemetry import span
 from .operator import DesignMatrix, atx, ax, f64
 from .spectral import GramFactor, _trace_closed_forms
 
@@ -103,11 +104,15 @@ def _from_rank0(fac: GramFactor, shard: Shard | None, make) -> tuple[EigenFactor
 
 
 def _build_eigen(fac: GramFactor) -> tuple[EigenFactor, dict]:
-    """build_eigen on this process."""
+    """build_eigen on this process; diagnostics["solve_s"] is the wall of
+    the eigh alone."""
     wd = fac.K.dtype
     K64 = fac.K.to(torch.float64)
     K64 = 0.5 * (K64 + K64.T)
-    _, V = torch.linalg.eigh(K64)
+    with span("eigh.solve") as solve:
+        _, V = torch.linalg.eigh(K64)
+        if V.is_cuda:  # eigh reads its info on the host anyway
+            torch.cuda.synchronize(V.device)
     U = V.to(wd)
     U64 = U.to(torch.float64)
     KU = K64 @ U64
@@ -115,7 +120,8 @@ def _build_eigen(fac: GramFactor) -> tuple[EigenFactor, dict]:
     resid = torch.linalg.norm(KU - U64 * lam[None, :]) / torch.linalg.norm(K64)
     G = U64.T @ U64
     ortho = (G - torch.eye(fac.n, dtype=torch.float64, device=G.device)).abs().max()
-    return EigenFactor(U=U, lam=lam), {"resid": float(resid), "ortho": float(ortho)}
+    return EigenFactor(U=U, lam=lam), {"resid": float(resid), "ortho": float(ortho),
+                                       "solve_s": solve.seconds}
 
 
 # The fingerprint's probe: a standard normal N-vector from numpy's PCG64 at

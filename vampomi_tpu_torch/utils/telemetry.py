@@ -1,17 +1,24 @@
-# Copied from vampomi_tpu/utils/telemetry.py, its rank check on torch.distributed's rank (sharding.is_writer).
-"""Per-iteration tracing: phase wall-clock + matvec-throughput counters.
+# Copied from vampomi_tpu/utils/telemetry.py, its rank check on torch.distributed's rank (sharding.is_writer);
+# the spans and the counted passes are the port's own.
+"""Per-iteration tracing: spans over the engines' phases, and the passes
+over the design counted where they happen.
 
 The reference instruments each phase with MPI_Wtime prints and a
 total_comp_time accumulator (src/vamp.cpp:154-174, 285-333, 395-403; SURVEY
-§5.1).  Here each engine iteration records a structured
-`IterationTelemetry`: wall time, CG iteration count, estimated device-memory
-bytes moved over the design matrix, and the implied GB/s.  Records are
-printed humanely and optionally appended to `<out>_trace.jsonl` for machine
-consumption.
+§5.1).  Here a `span` names a phase: it always takes the phase's host wall
+on the monotonic clock, into the record of the iteration in progress or
+into a dict the caller gives; while torch.profiler records, it also enters
+`record_function("vampomi.<name>")`, so the phase shows in the profiler's
+Chrome trace as a user annotation on the clock of the kernels it launches.
+With the profiler off a span is one flag test and two clock reads.  Spans
+never synchronise.
 
-The engine stops the clock after the iteration's one batched host fetch of
-its scalars, which waits for the device, so `seconds` is wall time of
-finished work.
+Each engine iteration records an `IterationTelemetry`: its wall, its CG
+steps, the passes over X that `ops/operator.py` counted during it and the
+bytes they read, and its phases' walls.  The engine stops the clock after
+the iteration's one batched host fetch of its scalars, which waits for the
+device, so `seconds` is wall time of finished work.  Records are printed
+humanely and optionally appended to `<out>_trace.jsonl`.
 """
 
 from __future__ import annotations
@@ -21,7 +28,45 @@ import os
 import time
 from dataclasses import asdict, dataclass, field
 
+import torch.autograd.profiler as _prof
+
 from ..sharding import is_writer
+
+# ns walls, by span name, of the iteration in progress in this process
+# (Tracer.start opens it, Tracer.stop closes it); None outside iterations
+_open: dict | None = None
+
+
+class span:
+    """`with span(name[, into]):` times a phase.  Its seconds go to
+    `into[name]` when `into` is given, else are added to `name` in the
+    record of the iteration in progress (a span entered several times an
+    iteration sums), else nowhere; `.seconds` holds them after the block."""
+
+    __slots__ = ("name", "into", "seconds", "_t0", "_rf")
+
+    def __init__(self, name: str, into: dict | None = None):
+        self.name = name
+        self.into = into
+        self._rf = None
+
+    def __enter__(self):
+        if _prof._is_profiler_enabled:
+            self._rf = _prof.record_function("vampomi." + self.name)
+            self._rf.__enter__()
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        ns = time.perf_counter_ns() - self._t0
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        self.seconds = ns * 1e-9
+        if self.into is not None:
+            self.into[self.name] = self.seconds
+        elif _open is not None:
+            _open[self.name] = _open.get(self.name, 0) + ns
+        return False
 
 
 @dataclass
@@ -29,61 +74,50 @@ class IterationTelemetry:
     iteration: int
     seconds: float
     cg_iters: int
-    matrix_passes: int      # full reads of the M×N design matrix
-    bytes_moved: int
-    gbps: float
+    matrix_passes: int      # full reads of the design, counted at the operator
+    bytes_moved: int        # those passes times the stored design's bytes
     extra: dict = field(default_factory=dict)
-
-
-def estimate_passes(cg_iters: int, model: str = "linear", solver: str = "cg") -> int:
-    """Full passes over the M×N matrix per engine iteration.
-
-    Multi-RHS CG: each body step is one ax_batch + one atx_batch = 2 passes
-    (shared by both RHS columns), plus 2 for the initial residual.  Around
-    the solve: atx(y) [1], ax(x1) [1], ax(x2) + atx(ax(invq)) [3], metrics
-    ax [1] (linear) or the probit engine's extra Ax calls [4].
-
-    Spectral solver (linear): ax_batch([x1, v]) [1] + atx(q) [1] — two
-    passes per iteration, period (ops/spectral.py; z2 is algebraic).
-    Probit: ax_batch([z1_pred, v]) [1] + atx(p2) [1] + atx(q) [1].
-    """
-    if solver in ("spectral", "eigen"):
-        # eigen shares the spectral pass structure: the dense work moves
-        # from a per-iteration factor to the eigenbasis, X passes unchanged
-        return 2 if model == "linear" else 3
-    around = 6 if model == "linear" else 8
-    return 2 * (cg_iters + 1) + around
+    phases: dict = field(default_factory=dict)  # {span: seconds} and "passes"
 
 
 class Tracer:
-    def __init__(self, path: str | None = None, model: str = "linear",
-                 solver: str = "cg"):
+    """The iterations of one engine run.  `passes()` reads the process's
+    count of passes over the design, `x_bytes` is what one pass reads."""
+
+    def __init__(self, path: str | None, passes, x_bytes: int):
         self.path = path if is_writer() else None  # rank 0 writes the trace
-        self.model = model
-        self.solver = solver
+        self.passes = passes
+        self.x_bytes = int(x_bytes)
         self.records: list[IterationTelemetry] = []
         self.total_comp_time = 0.0
-        self._t0 = None
+        self._iteration = None
         if self.path and os.path.exists(self.path):
             os.remove(self.path)
 
     def start(self):
-        self._t0 = time.time()
+        """Open an iteration: its record and its `iteration` span."""
+        global _open
+        _open = {}
+        self._p0 = self.passes()
+        self._iteration = span("iteration").__enter__()
 
-    def stop(self, iteration: int, cg_iters: int, m: int, n: int, itemsize: int,
-             **extra) -> IterationTelemetry:
-        dt = time.time() - self._t0
-        self.total_comp_time += dt
-        passes = estimate_passes(cg_iters, self.model, self.solver)
-        bytes_moved = passes * m * n * itemsize
+    def stop(self, iteration: int, cg_iters: int, **extra) -> IterationTelemetry:
+        global _open
+        it, self._iteration = self._iteration, None
+        it.__exit__(None, None, None)
+        walls, _open = _open, None
+        passes = self.passes() - self._p0
+        phases = {name: ns * 1e-9 for name, ns in walls.items()}  # "iteration" among them
+        phases["passes"] = passes
+        self.total_comp_time += phases["iteration"]
         rec = IterationTelemetry(
             iteration=iteration,
-            seconds=dt,
+            seconds=phases["iteration"],
             cg_iters=cg_iters,
             matrix_passes=passes,
-            bytes_moved=bytes_moved,
-            gbps=bytes_moved / dt / 1e9 if dt > 0 else 0.0,
+            bytes_moved=passes * self.x_bytes,
             extra=extra,
+            phases=phases,
         )
         self.records.append(rec)
         if self.path:
@@ -91,12 +125,16 @@ class Tracer:
                 f.write(json.dumps(asdict(rec)) + "\n")
         return rec
 
-    def summary(self) -> dict:
-        if not self.records:
-            return {}
-        return dict(
-            iterations=len(self.records),
-            total_seconds=self.total_comp_time,
-            mean_gbps=sum(r.gbps for r in self.records) / len(self.records),
-            total_cg_iters=sum(r.cg_iters for r in self.records),
-        )
+    def close(self):
+        """End an iteration left open by a raise, recording nothing."""
+        global _open
+        if self._iteration is not None:
+            self._iteration.__exit__(None, None, None)
+            self._iteration, _open = None, None
+
+    def line(self, rec: IterationTelemetry) -> str:
+        """The log line of an iteration: its wall, passes and phases."""
+        walls = ", ".join(f"{k} {1e3 * v:.2f}" for k, v in rec.phases.items()
+                          if k not in ("iteration", "passes"))
+        return (f"iteration time = {rec.seconds:.3f}s  ({rec.matrix_passes} matrix passes; "
+                f"ms: {walls})  total = {self.total_comp_time:.3f}s")
