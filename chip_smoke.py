@@ -7,7 +7,7 @@ Phases (each prints its own lines; any failure ends the run non-zero):
 
   0. device   — a CUDA card must be present; prints nvidia-smi's name and
                 power limit and torch's device name.
-  1. build    — builds the fifteen kernel libraries from vampomi_tpu_torch/csrc,
+  1. build    — builds the sixteen kernel libraries from vampomi_tpu_torch/csrc,
                 one nvcc each, and the host IO runtime (host_io.cpp, the
                 host C++ compiler), all started together.
   2. kernel   — each kernel against its plain PyTorch version and against f64
@@ -35,6 +35,17 @@ Phases (each prints its own lines; any failure ends the run non-zero):
                 row_moments_int8 on rows past the int32 range of a sum of
                 squares (N = 262,144 and a ragged 262,147), bitwise against
                 its plain version and the exact integers.
+  2c. gram    — the Gram on the tensor cores (ops/gram_tc.py) for int8,
+                packed int4 and bf16 designs at M = 131,072 x N = 10,240
+                and a ragged 20,000 x 1,000: G and t within 1e-5 of the
+                largest of its plain version's, two launches a block of
+                16,384 rows, its K error against an f64 K at most 2x today's
+                f32 route's and 10x below the single-bf16 route's, G
+                exactly symmetric and bitwise repeatable; at N = 10,240
+                timed in turns with today's torch.matmul route (its
+                yardstick) beside its bound; then an eigen cache written
+                from today's K must load against its K.  Every exact run of
+                the later phases counts its launches exactly.
   3. parity   — infere_linear and infere_bin_class (probit) on the card
                 against the same port on the CPU at M = 16,384 x N = 2,048
                 (data_sim; 0/1 labels for probit), int8 and int4: eigen and
@@ -202,10 +213,10 @@ Phases (each prints its own lines; any failure ends the run non-zero):
 
 Before the ranks line, a line "[timing] {...}" gives each phase's wall
 seconds (a phase run in several parts, such as 7, summed) and the total.
-The line before the last is the kernel record {"kernels": [...]}: seventeen
+The line before the last is the kernel record {"kernels": [...]}: eighteen
 kernels standing for the twelve TPU kernels of the repo, the int8 einsum
 of CG's A^T pass, the LOO pass's row reductions, the Gibbs sampler's
-block update and the bf16 design's three einsums, each with its bound
+block update, the bf16 design's three einsums and the Gram, each with its bound
 (the larger of its bytes over 3.35 TB/s and its operations over the peak
 rate of their type, from this run's shapes) and its one-call PyTorch
 yardstick where one exists; the last line is {"ok": true, "device":
@@ -282,7 +293,8 @@ from vampomi_tpu_torch.ops.operator import (  # noqa: E402
 from vampomi_tpu_torch.ops.packed4 import (  # noqa: E402
     atx_batch_packed4, atx_batch_packed4_plain, atx_packed4, atx_packed4_plain,
 )
-from vampomi_tpu_torch.ops import spectral  # noqa: E402
+from vampomi_tpu_torch.ops import gram_tc, spectral  # noqa: E402
+from vampomi_tpu_torch.ops.eigen import build_eigen_cached  # noqa: E402
 from vampomi_tpu_torch.ops.spectral import build_spectral, shift_inverse  # noqa: E402
 from vampomi_tpu_torch.ops.stream import (  # noqa: E402
     stream_rowsum, stream_rowsum_plain, stream_sum, stream_sum_plain,
@@ -335,7 +347,7 @@ class Kernel(NamedTuple):
     source: str             # the CUDA source it is built from
     replaces: str           # the TPU kernels it stands for, "file:line; ..."
     kind: str               # "vec": X y; "rows": X Ys; "cols": X^T W; "stream"; "moments";
-    #                         "gibbs": the sequential block update
+    #                         "gibbs": the sequential block update; "gram": X^T diag(w2) X
     bf16: bool = False      # the vector is rounded to bf16 (tensor cores)
     library: Callable | None = None  # one PyTorch call computing the same, if any
 
@@ -402,6 +414,12 @@ KERNELS = {
     "ax_batch_bf16": Kernel(ax_batch_bf16, ax_batch_bf16_plain, CSRC + "ax_batch_bf16.cu",
                             "vampomi_tpu/ops/operator.py:186 (XLA einsum, no Pallas kernel)",
                             "cols"),
+    # the Gram of eigen and spectral: an XLA dot in JAX, no Pallas kernel;
+    # no PyTorch call computes it (phase 2c times it beside today's f32
+    # route, gram_blocks: torch.matmul over upcast blocks)
+    "gram_tc": Kernel(gram_tc.gram_tc, gram_tc.gram_tc_plain, CSRC + "gram_tc.cu",
+                      "vampomi_tpu/ops/spectral.py:111-133 (XLA dot, no Pallas kernel)", "gram",
+                      bf16=True),
 }
 # one cuBLAS call beside each bf16 kernel, timed and logged but not its
 # library yardstick: X @ V.to(bfloat16) rounds V and the output to bf16, a
@@ -737,6 +755,153 @@ def phase_probe(dev: str, X8: torch.Tensor, X4: torch.Tensor) -> tuple[dict, dic
         log(f"[probe] {name}: {ms:.3f} ms beside torch's one-call int32 sum {lib_ms:.3f} ms "
             f"(in turns; the tool's time {recs[name]['ms']:.3f} ms is the record)")
     return recs, {name: counts[name] for name in PROBE_KERNELS}
+
+
+# The Gram on the tensor cores (ops/gram_tc.py): each design kind at
+# M x N, the north-star width and a ragged one (N not a multiple of the
+# 128-wide tile, M not one of the 16,384-row block); against its plain
+# version to GRAM_VS_PLAIN of the largest |G| and |t|; its K error against
+# an f64 K at most GRAM_VS_F32 times that of today's f32 route
+# (gram_tc.gram_blocks) and GRAM_VS_BF16 times below that of the JAX
+# package's single-bf16 route
+GRAM_SHAPES = ((131_072, 10_240), (20_000, 1_000))
+GRAM_VS_PLAIN, GRAM_VS_F32, GRAM_VS_BF16 = 1e-5, 2.0, 10.0
+GRAM_BLOCK = 16_384  # rows of a block of spectral.gram's (two launches each)
+
+
+def gram_launches(solver: str, rows: int) -> dict:
+    """The Gram kernel's launches of one run on `rows` rows of X: an exact
+    solver builds K once (a loaded eigen cache too: its fingerprint reads
+    K), two launches a block; CG none."""
+    return {} if solver == "cg" else {"gram_tc": 2 * -(-rows // GRAM_BLOCK)}
+
+
+def gram_design(kind: str, m: int, n: int, dev: str):
+    """m x n random int8 codes, packed nibbles or bf16 normal values made on
+    the card, as a DesignMatrix."""
+    if kind == "bf16":
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 11)
+        return design_from_raw_rows(m, n, lambda lo, hi: torch.randn(
+            (hi - lo, n), device=dev, generator=g), dev)
+    X = random_codes(m, n // 2 if kind == "int4" else n, PARITY_DTYPES[kind], SEED + 12, dev)
+    return design_from_packed(X) if kind == "int4" else design_from_codes(X)
+
+
+def _k64(G: torch.Tensor, t: torch.Tensor, s2: float, n: int) -> torch.Tensor:
+    """K in f64 from a route's G and t: the Gram's error alone."""
+    t = t.double()
+    return (G.double() - t[:, None] - t[None, :] + s2) / n
+
+
+def gram_single_bf16(X: torch.Tensor, w2: torch.Tensor, n: int,
+                     block: int = GRAM_BLOCK) -> torch.Tensor:
+    """The JAX package's G: w2 x rounded to bf16 once, products and sums in
+    f32 (vampomi_tpu/ops/spectral.py:111-133)."""
+    G = torch.zeros((n, n), dtype=torch.float32, device=X.device)
+    for lo in range(0, X.shape[0], block):
+        Xb = gram_tc.decode(X[lo:lo + block])
+        G += (w2[lo:lo + block, None] * Xb).to(torch.bfloat16).to(torch.float32).T @ Xb
+    return G
+
+
+def gram_bound(m: int, n: int) -> tuple[float, str]:
+    """The three-piece products of the lower block triangle at the bf16 rate."""
+    side = -(-n // gram_tc.TILE)
+    flops = 3 * 2 * m * gram_tc.TILE ** 2 * side * (side + 1) // 2
+    return bound_ms(0, flops, BF16_FLOPS)
+
+
+def check_gram(kind: str, m: int, n: int, dev: str, timed: bool) -> dict:
+    """gram_tc against its plain version and against an f64 G on one design,
+    beside today's f32 route and the single-bf16 one; its launches, two a
+    block, counted from 0; exact symmetry and bitwise repeatability; when
+    timed, in turns with today's route."""
+    dm = gram_design(kind, m, n, dev)
+    X = dm.X
+    w2 = dm.msig * dm.msig
+    u = w2 * dm.mave
+    s2 = float((u.double() * dm.mave.double()).sum())
+    shape = f"{kind} {m} x {n}"
+    reset_launches()
+    G, t = gram_tc.gram_tc(X, w2, u)
+    count = {name: c for name, c in launches().items() if c}
+    check(count == gram_launches("eigen", m), f"gram_tc at {shape}: launches {count}, want "
+                                              f"{gram_launches('eigen', m)}")
+    routes = {"kernel": (G, t), "plain": gram_tc.gram_tc_plain(X, w2, u),
+              "f32": gram_tc.gram_blocks(X, w2, u, n)}
+    routes["bf16"] = (gram_single_bf16(X, w2, n), routes["f32"][1])
+    K64 = _k64(*gram_tc.gram_blocks(X, w2.double(), u.double(), n), s2, n)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(G).all() and torch.isfinite(t).all()),
+          f"gram_tc: not finite at {shape}")
+    check(torch.equal(G, G.T), f"gram_tc: G not exactly symmetric at {shape}")
+    scale = float(K64.abs().max())
+    err, bias = {}, {}
+    for name, (Gr, tr) in routes.items():
+        D = _k64(Gr, tr, s2, n) - K64
+        err[name] = float(D.abs().max()) / scale
+        bias[name] = float((D.diagonal() / K64.diagonal()).mean())
+    Gp, tp = routes["plain"]
+    vs_plain = float((G - Gp).abs().max() / Gp.abs().max())
+    t_vs_plain = float((t - tp).abs().max() / tp.abs().max())
+    log(f"[gram] {shape}: max |K - K_f64| / max |K_f64|: kernel {err['kernel']:.3e}, plain "
+        f"{err['plain']:.3e}, today's f32 route {err['f32']:.3e}, single bf16 "
+        f"{err['bf16']:.3e}; G vs plain {vs_plain:.3e}, t vs plain {t_vs_plain:.3e} (of max); "
+        f"the diagonal's mean relative error: kernel {bias['kernel']:.2e}, f32 route "
+        f"{bias['f32']:.2e}; launches {count}")
+    check(vs_plain <= GRAM_VS_PLAIN and t_vs_plain <= GRAM_VS_PLAIN,
+          f"gram_tc: G or t against its plain version {vs_plain:.3e}, {t_vs_plain:.3e} of "
+          f"max, above {GRAM_VS_PLAIN} at {shape}")
+    check(err["kernel"] <= GRAM_VS_F32 * err["f32"],
+          f"gram_tc: K error {err['kernel']:.3e} above {GRAM_VS_F32}x today's at {shape}")
+    check(GRAM_VS_BF16 * err["kernel"] <= err["bf16"],
+          f"gram_tc: K error {err['kernel']:.3e} not {GRAM_VS_BF16}x below single bf16's "
+          f"at {shape}")
+    check(torch.equal(G, gram_tc.gram_tc(X, w2, u)[0]), f"gram_tc not repeatable at {shape}")
+    rec = dict(max_abs_err=float((G - Gp).abs().max()), err=err, diag_bias=bias)
+    if timed:
+        ms, lib_ms, t_kern, t_lib = in_turns(lambda: gram_tc.gram_tc(X, w2, u),
+                                             lambda: gram_tc.gram_blocks(X, w2, u, n))
+        plain_ms = card_ms(lambda: gram_tc.gram_tc_plain(X, w2, u), reps=3, warmup=1)
+        least_ms, least_by = gram_bound(m, n)
+        log(f"[gram] {shape}: {ms:.3f} ms (bound {least_ms:.3f} ms by {least_by}, "
+            f"{100 * least_ms / ms:.1f}% of it); today's torch.matmul f32 route {lib_ms:.3f} ms "
+            f"({lib_ms / ms:.2f}x); plain {plain_ms:.3f} ms; runs {t_kern} / {t_lib}")
+        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=least_ms, bound_by=least_by,
+                   library_ms=lib_ms)
+    return rec
+
+
+def phase_gram(dev: str) -> dict:
+    """The Gram kernel on each design kind and shape (check_gram; timed at
+    the north-star width), then an eigen cache written from today's K must
+    load against the kernel's K (a fingerprint hit).  The main path's
+    runs count its launches (phase_main).  Returns the kernel's record: the
+    int8 timing, the largest error over all cases."""
+    recs = {}
+    for m, n in GRAM_SHAPES:
+        for kind in PARITY_DTYPES:
+            recs[(kind, n)] = check_gram(kind, m, n, dev, timed=n == GRAM_SHAPES[0][1])
+            torch.cuda.empty_cache()
+    m, n = GRAM_SHAPES[0]
+    dm = gram_design("int8", m, n, dev)
+    K_old = spectral.gram(dm._replace(X=gram_tc.decode(dm.X)))  # today's route: f32 X
+    K_new = spectral.gram(dm)
+    with tempfile.TemporaryDirectory(prefix="vampomi_gram_") as d:
+        path = os.path.join(d, "eigen.npz")
+        build_eigen_cached(spectral.GramFactor(K_old), path)
+        _, diag = build_eigen_cached(spectral.GramFactor(K_new), path)
+    check(bool(diag.get("loaded")), "gram_tc: an eigen cache of today's K missed the new K")
+    log(f"[gram] K against today's route max |diff| {float((K_new - K_old).abs().max()):.3e}; "
+        f"the eigen cache written from today's K loaded against it")
+    rec = dict(recs[("int8", n)])
+    rec["max_abs_err"] = max(r["max_abs_err"] for r in recs.values())
+    rec["err"] = {f"{kind}_{nn}": r["err"] for (kind, nn), r in recs.items()}
+    rec["ms_by_kind"] = {kind: recs[(kind, n)]["ms"] for kind in PARITY_DTYPES}
+    del dm, K_old, K_new
+    torch.cuda.empty_cache()
+    return rec
 
 
 def _params_rows(d: str, name: str) -> np.ndarray:
@@ -1134,16 +1299,17 @@ class MainPath(NamedTuple):
     beta: np.ndarray        # the planted effects, file units
 
 
-def exact_launches(dtype: str, solver: str, k: int, steps: list[int]) -> dict:
-    """The launches of a linear run of k iterations: the setup's A^T y and
-    one A^T pass an iteration, and the two-column ax_batch pass (exact
-    solvers); CG adds, an iteration, ax of x1, x2 and the probe's trace
-    pass, the initial residual's pass each way, then one pass each way a
-    CG step (`steps`, from the run's trace)."""
+def exact_launches(dtype: str, solver: str, k: int, steps: list[int], rows: int) -> dict:
+    """The launches of a linear run of k iterations on `rows` rows of X: the
+    setup's A^T y and one A^T pass an iteration, and the two-column
+    ax_batch pass (exact solvers, with the Gram's, gram_launches); CG adds,
+    an iteration, ax of x1, x2 and the probe's trace pass, the initial
+    residual's pass each way, then one pass each way a CG step (`steps`,
+    from the run's trace)."""
     sfx = MAIN_SUFFIX[dtype]
     atx_k, ax_k, rows_k = (f"atx_{sfx}", f"ax_batch_{sfx}", f"atx_batch_{sfx}")
     if solver != "cg":
-        return {atx_k: k + 1, ax_k: k}
+        return {atx_k: k + 1, ax_k: k, **gram_launches(solver, rows)}
     return {atx_k: k + 1, ax_k: sum(steps) + 4 * k, rows_k: sum(steps) + k}
 
 
@@ -1223,7 +1389,7 @@ def phase_main(dtype: str, build: Callable, log_dir: str, out_dir: str, x1_min: 
                 os.path.join(out_dir, f"{name}_it_{i}.bin"), m)))), "dump not finite")
         steps = (_trace_steps(os.path.join(out_dir, f"{name}_trace.jsonl"))
                  if res.solver == "cg" else [])
-        want = exact_launches(dtype, res.solver, k, steps)
+        want = exact_launches(dtype, res.solver, k, steps, m)
         check(count == want, f"{dtype} {label}: launches {count}, want {want}")
         if label.endswith("_warm"):
             with open(os.path.join(log_dir, f"{name}.log")) as f:
@@ -1239,7 +1405,7 @@ def phase_main(dtype: str, build: Callable, log_dir: str, out_dir: str, x1_min: 
         mo = np.asarray(off.metrics_history)
         check(mo.shape == mh.shape and np.all(np.isfinite(mo)),
               f"{dtype} {label}, outputs off: bad shapes or values")
-        want = exact_launches(dtype, off.solver, k, steps)
+        want = exact_launches(dtype, off.solver, k, steps, m)
         check(count == want, f"{dtype} {label}, outputs off: launches {count}, want {want}")
         off_secs[label] = off.iter_seconds
         log(f"[main {dtype}] {label}, outputs off: per-iteration seconds "
@@ -1439,7 +1605,7 @@ def phase_probit_main(main: MainPath, log_dir: str, out_dir: str,
                   and np.all(np.isfinite(res.x1_hat_scaled)), f"probit {solver}: not finite")
             if res.solver == "cg" and outputs:
                 steps = _trace_steps(os.path.join(out_dir, f"probit_{solver}_trace.jsonl"))
-            want = probit_launches(res.solver, k, steps if res.solver == "cg" else [])
+            want = probit_launches(res.solver, k, steps if res.solver == "cg" else [], m)
             check(count == want, f"probit {solver}: launches {count}, want {want}")
     return launches()
 
@@ -2018,12 +2184,13 @@ def probit_iteration_collectives(solver: str, k: int, steps: list[int]) -> list[
     return [c + (i > 0) for i, c in enumerate(base)]
 
 
-def probit_launches(solver: str, k: int, steps: list[int]) -> dict:
-    """A probit run's launches on the int8 design: exact, atx_int8 2 and
-    ax_batch_int8 1 an iteration; CG, A^T p2 an iteration, ax of x1 and x2
-    and the initial residual's pass, then one pass each way a CG step."""
+def probit_launches(solver: str, k: int, steps: list[int], rows: int) -> dict:
+    """A probit run's launches on `rows` rows of the int8 design: exact,
+    atx_int8 2 and ax_batch_int8 1 an iteration and the Gram's
+    (gram_launches); CG, A^T p2 an iteration, ax of x1 and x2 and the
+    initial residual's pass, then one pass each way a CG step."""
     if solver != "cg":
-        return {"atx_int8": 2 * k, "ax_batch_int8": k}
+        return {"atx_int8": 2 * k, "ax_batch_int8": k, **gram_launches(solver, rows)}
     return {"atx_int8": k, "ax_batch_int8": sum(steps) + 3 * k, "atx_batch_int8": sum(steps) + k}
 
 
@@ -2196,6 +2363,7 @@ def ranks_worker(spec_path: str) -> int:
         dist.destroy_process_group()
     for tag, res in results.items():
         res["built_s"] = built
+        res["rows"] = hi - lo
         with open(os.path.join(spec["out_dir"], f"{tag}_rank{res['rank']}.json"), "w") as f:
             json.dump(res, f)
     return 0
@@ -2268,8 +2436,8 @@ def check_rank_runs(tag: str, res: list, runs, out_dir: str) -> None:
     for i, (label, _, k, expect) in enumerate(runs):
         steps = (_trace_steps(os.path.join(out_dir, f"{tag}_{label}_trace.jsonl"))
                  if expect == "cg" else [])
-        want = exact_launches("int8", expect, k, steps)
         for r in res:
+            want = exact_launches("int8", expect, k, steps, r["rows"])
             run = r["runs"][i]
             where = f"ranks {tag} rank {r['rank']} {label}"
             check(run["solver"] == expect, f"{where}: ran {run['solver']}, want {expect}")
@@ -2287,8 +2455,8 @@ def check_rank_runs(tag: str, res: list, runs, out_dir: str) -> None:
     for i, (label, _, k, expect) in enumerate(PROBIT_RANK_RUNS):
         steps = (_trace_steps(os.path.join(out_dir, f"{tag}_probit_{label}_trace.jsonl"))
                  if expect == "cg" else [])
-        want = probit_launches(expect, k, steps)
         for r in res:
+            want = probit_launches(expect, k, steps, r["rows"])
             run = r["probit"][i]
             where = f"ranks {tag} rank {r['rank']} probit {label}"
             first = res[0]["probit"][i]
@@ -3060,7 +3228,7 @@ def files_workflow(dev: str, d: str, m: int, log_dir: str) -> dict:
     # the launches: an exact eigen run's, test's one pass of its k estimates,
     # SE none (a wrapper counts kernel launches, so none off the card, where
     # the phase is rehearsed)
-    want = [exact_launches("int8", "eigen", k, []), {"ax_batch_int8": 1}, {}]
+    want = [exact_launches("int8", "eigen", k, [], m), {"ax_batch_int8": 1}, {}]
     if not dev.startswith("cuda"):
         want = [{}, {}, {}]
     check(res["launches"] == want, f"files: infere, test and SE launched {res['launches']}, "
@@ -3289,7 +3457,7 @@ def device_busy(events: list) -> tuple[float, float]:
     return busy / 1e3, span / 1e3
 
 
-def _counted(rec: dict) -> dict:
+def _without_walls(rec: dict) -> dict:
     """A _trace.jsonl record without its walls, which differ from run to
     run: `seconds` goes, and of `phases` only the counted "passes" stay."""
     rec = {key: v for key, v in rec.items() if key != "seconds"}
@@ -3339,7 +3507,7 @@ def files_profile(dev: str, log_dir: str, n: int = 2_000, m: int = 8_000, iters:
         for f in files:
             a, b = (_bytes(os.path.join(d, s, f)) for s in ("plain", "prof"))
             if f.endswith("_trace.jsonl"):
-                a, b = ([_counted(json.loads(ln)) for ln in x.decode().splitlines()]
+                a, b = ([_without_walls(json.loads(ln)) for ln in x.decode().splitlines()]
                         for x in (a, b))
             check(a == b, f"profile: {f} differs with --profile-dir")
         size = sum(os.path.getsize(os.path.join(trace_dir, t)) for t in os.listdir(trace_dir)) / 1e6
@@ -3405,6 +3573,8 @@ def main(argv=None) -> int:
         with timed("2b_probe"):
             probe_recs, probe_counts = phase_probe(dev, X8, X4)
         recs.update(probe_recs)
+        with timed("2c_gram"):
+            recs["gram_tc"] = phase_gram(dev)
         with timed("3_parity"):
             for dtype in DTYPES:
                 phase_parity(dev, dtype, log_dir, out_dir)
@@ -3435,7 +3605,7 @@ def main(argv=None) -> int:
         counts.update(mode_counts)
         with timed("5c_probit"):
             probit_counts = phase_probit_main(main8, log_dir, out_dir)
-        for name in ("atx_int8", "ax_batch_int8", "atx_batch_int8"):  # both main paths
+        for name in ("atx_int8", "ax_batch_int8", "atx_batch_int8", "gram_tc"):  # both paths
             counts[name] += probit_counts[name]
         with timed("7_gibbs"):
             recs["gibbs_block_update"] = phase_gibbs_kernel(main8, args.gibbs_reference)
@@ -3449,6 +3619,7 @@ def main(argv=None) -> int:
                                x1_min=X1_MIN_INT4)
             counts.update({name: c for name, c in main4.launches.items()
                            if name in ("atx_packed4", "ax_batch_packed4", "atx_batch_packed4")})
+            counts["gram_tc"] += main4.launches["gram_tc"]
             mode_recs, mode_counts = phase_modes(
                 "int4", main4, out_dir, *main_dumps(out_dir, "int4", "eigen", 5), test_runs=5)
         recs.update(mode_recs)
@@ -3464,6 +3635,7 @@ def main(argv=None) -> int:
                                 runs=MAIN_RUNS_BF16)
             counts.update({name: c for name, c in main16.launches.items()
                            if name.endswith("bf16")})
+            counts["gram_tc"] += main16.launches["gram_tc"]
             phase_modes("bf16", main16, out_dir, *main_dumps(out_dir, "bf16", "auto", 4),
                         test_runs=4)
         with timed("7_gibbs"):

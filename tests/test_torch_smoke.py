@@ -74,10 +74,13 @@ def test_resume_phase_runs_on_the_cpu(tmp_path, capsys):
 def test_exact_launches_count_the_engines_passes(tmp_path, monkeypatch, solver):
     """The launch counts chip_smoke.py holds the bf16 main path to are the
     calls the linear engine makes to the three bf16 wrappers (counted here
-    on the CPU, where the wrappers run their plain versions)."""
+    on the CPU, where the wrappers run their plain versions), and the Gram
+    kernel's two launches a block of each Gram it builds (on the CPU the
+    Gram takes gram_blocks, counted as the kernel would launch)."""
     from vampomi_tpu_torch.config import RunConfig
     from vampomi_tpu_torch.engine.linear import infere_linear
     from vampomi_tpu_torch.ops import operator as top
+    from vampomi_tpu_torch.ops import spectral
     from vampomi_tpu_torch.sim.data_sim import simulate_iid
 
     calls = {}
@@ -89,6 +92,13 @@ def test_exact_launches_count_the_engines_passes(tmp_path, monkeypatch, solver):
             return _orig(*a)
 
         monkeypatch.setattr(top, name, counted)
+    gram_blocks = spectral.gram_blocks
+
+    def gram_counted(X, w2, u, n, block):
+        calls["gram_tc"] = calls.get("gram_tc", 0) + 2 * -(-X.shape[0] // block)
+        return gram_blocks(X, w2, u, n, block)
+
+    monkeypatch.setattr(spectral, "gram_blocks", gram_counted)
     fx = simulate_iid(n=200, m=800, lam=0.05, h2=0.8, seed=1)
     dm = top.build_design(fx.X.T, compute_dtype=torch.bfloat16, device="cpu")
     k = 3
@@ -98,4 +108,4 @@ def test_exact_launches_count_the_engines_passes(tmp_path, monkeypatch, solver):
                                             vars=[0.0, 1e-2]))
     steps = chip_smoke._trace_steps(str(tmp_path / "x_trace.jsonl")) if solver == "cg" else []
     assert res.solver == solver and (solver != "cg" or sum(steps) > 0)
-    assert calls == chip_smoke.exact_launches("bf16", solver, k, steps)
+    assert calls == chip_smoke.exact_launches("bf16", solver, k, steps, dm.m_pad)

@@ -7,12 +7,20 @@ K is built once per dataset, blocked over markers:
     G  = X^T diag(w^2) X,   t = X^T (w^2 ∘ mu),   s2 = sum_m w_m^2 mu_m^2
     K  = (G - t 1^T - 1 t^T + s2 11^T) / N
 
-so the w^2-scaled copy of X exists one block at a time.  int8 blocks are
-upcast to f32, packed-int4 blocks unpacked to their N f32 codes
-(spectral.py:89-110), and contracted in f32 with TF32 off — more exact than
-the JAX package, which rounds the w^2-weighted side to bf16
-(spectral.py:111-133).  This is plain torch.matmul, as JAX leaves it to XLA
-outside any Pallas kernel: 2·M·N^2 FLOPs once per dataset.
+so the w^2-scaled copy of X exists one block at a time.  Two routes, chosen
+by what X is, compute the same f32 function — more exact than the JAX
+package, which rounds the w^2-weighted side to bf16 (spectral.py:111-133):
+
+  * a narrow X on a card (int8 codes, packed-int4 nibbles or bf16 values,
+    f32 work dtype) runs the hand-written tensor-core kernel of
+    ops/gram_tc.py: codes exact in bf16, the f32 weighted side split into
+    three bf16 pieces that sum to it exactly, products exact and summed in
+    f32, over the lower block triangle only (about half of 3·2·M·N^2 bf16
+    FLOPs), G mirrored from it;
+  * everything else (any CPU tensor, f32 or f64 X) is plain torch.matmul,
+    as JAX leaves it to XLA outside any Pallas kernel: each block upcast to
+    the work dtype (packed blocks unpacked to their N codes,
+    spectral.py:89-110) and contracted with TF32 off, 2·M·N^2 FLOPs.
 
 Per iteration the spectral solver factors S = L L^T and forms W = L^{-1}
 (`shift_inverse`), so that S^{-1} b = W^T (W b) and T = tr S^{-1} = ||W||_F^2
@@ -50,8 +58,8 @@ import numpy as np
 import torch
 
 from ..sharding import all_reduce_many
-from .operator import PACKED4_DTYPE, DesignMatrix, atx, ax, f64
-from .packed4 import unpack_rows
+from .gram_tc import gram_blocks, gram_tc
+from .operator import NARROW, DesignMatrix, atx, ax, f64
 
 
 class GramFactor(NamedTuple):
@@ -66,26 +74,23 @@ class GramFactor(NamedTuple):
 
 
 def gram(dm: DesignMatrix, block: int = 16384) -> torch.Tensor:
-    """K = A A^T as an (N, N) tensor in the operator's work dtype.  Narrow X
-    (int8 or packed codes, bf16 values) is upcast to f32 one block of rows
-    at a time and multiplied in full f32; the JAX package rounds w·x to
-    bf16 there (vampomi_tpu/ops/spectral.py:111-133), so its K differs by
+    """K = A A^T as an (N, N) tensor in the operator's work dtype, f32 for
+    narrow X.  On a card, narrow X (int8 or packed codes, bf16 values) goes
+    through the tensor-core kernel (ops/gram_tc.py), whose three bf16
+    pieces of the f32 w^2·x make its products those of f32 and leave only
+    the order of the f32 sums to differ; everything else, and every CPU
+    tensor, through `gram_blocks`.  The JAX package rounds w^2·x to bf16
+    once there (vampomi_tpu/ops/spectral.py:111-133), so its K differs by
     that rounding.  Sharded over markers, each rank sums its slab's G, t
     and s2 and one all_reduce of the three makes K, the same bits on every
     rank (vampomi_tpu/ops/spectral.py:175-193)."""
     acc = dm.wd
-    X = dm.X
-    m, n = dm.m_pad, int(dm.n)  # packed X has N/2 byte columns
     w2 = (dm.msig * dm.msig).to(acc)
     u = w2 * dm.mave.to(acc)
-    G = torch.zeros((n, n), dtype=acc, device=dm.device)
-    t = torch.zeros(n, dtype=acc, device=dm.device)
-    block = max(1, min(block, m))
-    for lo in range(0, m, block):
-        hi = min(m, lo + block)
-        Xb = unpack_rows(X[lo:hi], acc) if X.dtype == PACKED4_DTYPE else X[lo:hi].to(acc)
-        G += (w2[lo:hi, None] * Xb).T @ Xb
-        t += u[lo:hi] @ Xb
+    if dm.X.is_cuda and dm.X.dtype in NARROW:
+        G, t = gram_tc(dm.X, w2, u, block)
+    else:
+        G, t = gram_blocks(dm.X, w2, u, int(dm.n), block)  # packed X has N/2 byte columns
     s2 = (u * dm.mave.to(acc)).sum()
     G, t, s2 = all_reduce_many([G, t, s2], dm.shard)
     inv_n = dm.inv_sqrt_n.to(acc) ** 2
