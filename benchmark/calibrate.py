@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """The readings that a cell's correctness limits are set from: the
 program's compared numbers over many seeds, and the control's (the
-reference computed in TF32, check.py, in the program's place) on some of
-them, at the cell's own size, on the card.
+reference computed in TF32, in the program's place) on some of them, at
+the cell's own size, on the card, by the model's reference
+(benchmark/models/<model>.py).
 
     python3 benchmark/calibrate.py --workloads C1[,C2...] --seeds S1,S2,... \\
         [--control-seeds S1,S2,S3] [--fits 2]
 
-The cells share one design (markers, samples, codes): each seed's design is
-drawn once and each cell fits it `--fits` times through the timed path
-(cell.fit), as a run's window does.  Per seed and cell one JSON line: the
-program's compared numbers (check.readings) and its largest row gap in
-each compared iteration, and on a control seed the control's, with each
-fit's seconds.  The benchmark's own runs never run this.
+The cells share one design and model (markers, samples, codes, model):
+each seed's design is drawn once and each cell fits it `--fits` times
+through the timed path (cell.fit), as a run's window does.  Per seed and
+cell one JSON line: the program's compared numbers (the model's readings)
+and its largest row gap in each compared iteration, and on a control seed
+the control's, with each fit's seconds.  The benchmark's own runs never run
+this.
 """
 
 import time
@@ -41,9 +43,10 @@ def main(argv=None) -> int:
 
     from benchmark import cell, check, spec
     cells = [spec.cell(w) for w in args.workloads.split(",")]
-    shape = {(c.config["markers"], c.config["samples"], c.config["codes"]) for c in cells}
+    shape = {(c.config["markers"], c.config["samples"], c.config["codes"], c.config["model"])
+             for c in cells}
     if len(shape) != 1:
-        raise SystemExit("calibrate: the cells do not share one design")
+        raise SystemExit("calibrate: the cells do not share one design and model")
     device = cell.require_cards(1)
     controls = {int(s) for s in args.control_seeds.split(",") if s}
     for seed in (int(s) for s in args.seeds.split(",")):
@@ -56,22 +59,22 @@ def main(argv=None) -> int:
             t1 = time.perf_counter()
             fits = [cell.fit(s, i) for i in range(args.fits)]
             runs.append((c, fits, time.perf_counter() - t1))
-        h2 = float(cells[0].config["run_config"]["h2"])
+        model = setup.model
         torch.cuda.empty_cache()
         t2 = time.perf_counter()
-        ref = check.Reference(setup.codes, setup.packed)
+        ref = model.Reference(setup.codes, setup.packed)
         t_ref = time.perf_counter() - t2
-        ctl = check.Reference(setup.codes, setup.packed, "tf32") if seed in controls else None
+        ctl = model.Reference(setup.codes, setup.packed, "tf32") if seed in controls else None
         for c, fits, t_fits in runs:
             good = [f for f in fits if f.ok]
             k = int(c.limits["head_iterations"])
             inputs = [f.inputs for f in good]
-            answers = [check.answer_of(f.result) for f in good]
+            answers = [model.answer_of(f.result) for f in good]
             t3 = time.perf_counter()
-            follow = ref.fits(inputs, h2, k)
+            follow = ref.fits(inputs, c.config, k)
             out = {"cell": c.name, "seed": seed, "ok": [f.ok for f in fits],
                    "errors": [f.error for f in fits if f.error],
-                   "program": check.readings(answers, inputs, ref, h2, k, follow),
+                   "program": model.readings(answers, inputs, ref, c.config, k, follow),
                    "per_iteration": check.per_iteration(answers, follow, k),
                    "x1_corr": [np.round(a.rows[:, 1], 4).tolist() for a in answers],
                    "fit_s": [round(sum(f.result.iter_seconds) + sum(
@@ -83,8 +86,8 @@ def main(argv=None) -> int:
                                "check": time.perf_counter() - t3}}
             if ctl is not None:
                 t4 = time.perf_counter()
-                control = ctl.fits(inputs, h2, k)
-                out["control"] = check.readings(control, inputs, ref, h2, k, follow)
+                control = ctl.fits(inputs, c.config, k)
+                out["control"] = model.readings(control, inputs, ref, c.config, k, follow)
                 out["control_per_iteration"] = check.per_iteration(control, follow, k)
                 out["seconds"]["control"] = time.perf_counter() - t4
             print(json.dumps(out), flush=True)

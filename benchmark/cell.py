@@ -2,10 +2,11 @@
 result line.
 
 A cell fits one planted phenotype after another on one design, as a user
-fitting trait after trait does.  Each fit is one call of the port's engine
-entry, `vampomi_tpu_torch.engine.linear.infere_linear(dm, y, cfg,
-true_signal=beta, write_outputs=False)`: A^T y, the LMMSE factor (the Gram,
-and under eigen its eigh) and the fit's iterations, with no files written.
+fitting trait after trait does.  What depends on the model is the module
+that the configuration's `model` names (benchmark/models/<model>.py,
+spec.model): the pool of phenotypes, the fit (one call of the port's entry
+for the model, with no files written), the reader of its result, and the
+reference and the numbers it compares.  Nothing here names an engine.
 
 Set-up (`setup_s`, from the process's start): CUDA's start, the design
 drawn on the card from the seed, the port's DesignMatrix over it, the pool
@@ -15,7 +16,7 @@ launch (building it on a checkout's first run), cuBLAS and cuSOLVER, at the
 cell's N.  The window then starts fit after fit until `seconds` have
 passed, and ends when the last fit started ends: `fit_s` is its length over
 its fits.  The check then holds a sample of the fits, drawn from the seed,
-against the reference (check.py).  A traced
+against the model's reference (check.py).  A traced
 run (`--trace 1`) first runs fit 0 under torch.profiler, which gives the
 per-layer metrics of the device (xpass_roofline, device_idle) and the
 breakdown, and then the window untraced, whose fits give those of the
@@ -36,7 +37,7 @@ import numpy as np
 import torch
 
 from . import check, roofline, spec, trace
-from .design import draw_codes, planted, subseed
+from .design import draw_codes, subseed
 
 BANNED = ("jax", "jaxlib", "flax", "vampomi_tpu")  # top-level names no run may load
 WARMUP_ROWS = 65_536   # rows of the set-up fit's design (at least 4 N: auto picks as at full size)
@@ -52,13 +53,14 @@ class Setup(NamedTuple):
     n: int
     seed: int            # the seed the design, the phenotypes and the probes are drawn from
     cell: spec.Cell
-    pool: list           # the planted phenotypes (design.Phenotype)
+    model: object        # the configuration's model (spec.model)
+    pool: list           # the planted phenotypes (the model's `phenotype`)
     order: list          # the pool's indices in the order the fits take them
 
 
 class Fit(NamedTuple):
-    inputs: check.Inputs  # what the fit was given, and so the reference too
-    result: object       # the engine's LinearResult, None where the fit raised
+    inputs: object       # what the fit was given, and so the reference too (the model's `inputs`)
+    result: object       # the engine's result, None where the fit raised
     ok: bool             # no raise, finite, all iterations
     error: str = ""      # what a fit that raised raised
 
@@ -95,15 +97,15 @@ def prepare(cell: spec.Cell, seed: int, device) -> Setup:
     m, n, packed = int(conf["markers"]), int(conf["samples"]), conf["codes"] == "int4"
     t = cell.traffic
     p = int(t["phenotypes"])
+    model = spec.model(conf["model"])
     codes = draw_codes(m, n, packed, seed, device)
 
     def pool(rows, indices):
-        return [planted(codes[:rows], packed, n, seed, i, int(t["markers_per_causal"]),
-                        float(conf["run_config"]["h2"])) for i in indices]
+        return [model.phenotype(codes[:rows], packed, n, seed, i, conf, t) for i in indices]
 
     order = np.random.default_rng(subseed(seed, 4)).permutation(p).tolist()
     setup = Setup(dm=_design(codes, packed), codes=codes, packed=packed, m=m, n=n,
-                  seed=seed, cell=cell, pool=pool(m, range(p)), order=order)
+                  seed=seed, cell=cell, model=model, pool=pool(m, range(p)), order=order)
     w = min(m, max(WARMUP_ROWS, 4 * n))
     warm = setup._replace(dm=_design(codes[:w], packed), codes=codes[:w], m=w,
                           pool=pool(w, [p]), order=[0])
@@ -116,27 +118,21 @@ def prepare(cell: spec.Cell, seed: int, device) -> Setup:
 def fit(setup: Setup, i: int, iterations: int | None = None) -> Fit:
     """Fit i of the run: the pool's phenotype order[i] (the order repeats
     past its end), with that phenotype's own probe seed."""
-    from vampomi_tpu_torch.config import RunConfig
-    from vampomi_tpu_torch.engine.linear import infere_linear
-    t = setup.cell.traffic
+    model, conf, t = setup.model, setup.cell.config, setup.cell.traffic
     j = setup.order[i % len(setup.order)]
-    ph = setup.pool[j]
+    item = setup.pool[j]
     probe_seed = subseed(setup.seed, 3, j)
-    its = int(setup.cell.config["iterations"]) if iterations is None else iterations
-    cfg = RunConfig(iterations=its, lmmse_solver=t["lmmse_solver"],
-                    device=str(setup.dm.device), seed=probe_seed, probs=ph.probs,
-                    vars=ph.vars, **setup.cell.config["run_config"])
-    probes = probe_seed if t["lmmse_solver"] == "cg" else None
-    inputs = check.Inputs(y=ph.y, beta=ph.beta, probs=ph.probs, vars=ph.vars, probe_seed=probes)
+    its = int(conf["iterations"]) if iterations is None else iterations
+    inputs = model.inputs(item, probe_seed, t)
     sink = io.StringIO()  # the engine's narration, as api.fit_linear(quiet=True) drops it
     try:
         with contextlib.redirect_stdout(sink), contextlib.redirect_stderr(sink):
-            res = infere_linear(setup.dm, ph.y, cfg, true_signal=ph.beta, write_outputs=False)
+            res = model.fit(setup.dm, item, its, probe_seed, conf, t)
     except Exception as e:  # a fit that raises is a failed fit: the window goes on
         msg = f"fit {i}: {type(e).__name__}: {e}"
         print(f"benchmark: {msg}", file=sys.stderr)
         return Fit(inputs=inputs, result=None, ok=False, error=msg)
-    return Fit(inputs=inputs, result=res, ok=check.finite_and_whole(res, its))
+    return Fit(inputs=inputs, result=res, ok=model.finite_and_whole(res, its))
 
 
 def window(setup: Setup, seconds: float, first: int = 0) -> tuple[list, float]:
@@ -178,14 +174,15 @@ def sample(setup: Setup, fits: list) -> list:
 
 
 def check_fits(setup: Setup, fits: list) -> dict:
-    """The compared numbers of a sample of the fits that came back whole."""
+    """The compared numbers of a sample of the fits that came back whole,
+    by the model's reference."""
     chosen = sample(setup, fits)
     if not chosen:
         return {}
-    ref = check.Reference(setup.codes, setup.packed)
-    return check.readings([check.answer_of(f.result) for f in chosen],
-                          [f.inputs for f in chosen], ref,
-                          float(setup.cell.config["run_config"]["h2"]),
+    model = setup.model
+    ref = model.Reference(setup.codes, setup.packed)
+    return model.readings([model.answer_of(f.result) for f in chosen],
+                          [f.inputs for f in chosen], ref, setup.cell.config,
                           int(setup.cell.limits["head_iterations"]))
 
 

@@ -3,8 +3,12 @@
 Every item sits in files of its own, found by its name:
 
   * a configuration: the `file` its BENCHMARK.json entry names
-    (benchmark/configs/<config>.json): the design's shape, its codes, the
-    iterations of a fit, the run settings, and where it comes from;
+    (benchmark/configs/<config>.json): the model, the design's shape, its
+    codes, the iterations of a fit, the run settings, and where it comes
+    from;
+  * a model, the one a configuration's `model` key names:
+    benchmark/models/<model>.py, which holds all that a run does that
+    depends on the model (see `model`);
   * a traffic mix: benchmark/traffic/<traffic>.json: the solver, the
     phenotype recipe and the size of the pool (the iterations of a fit are
     the configuration's);
@@ -22,6 +26,7 @@ from typing import NamedTuple
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+MODELS = HERE / "models"
 
 
 class Cell(NamedTuple):
@@ -60,14 +65,38 @@ def cell(name: str) -> Cell:
     )
 
 
-def reader(metric: str):
-    """The `read(run)` function of benchmark/metrics/<metric>.py."""
-    path = HERE / "metrics" / f"{metric}.py"
+def _module(package: str, path: Path):
     spec = importlib.util.spec_from_file_location(
-        "benchmark.metrics." + metric.replace(".", "_"), path)
+        f"benchmark.{package}." + path.stem.replace(".", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(metric: str):
+    """The `read(run)` function of benchmark/metrics/<metric>.py."""
+    return _module("metrics", HERE / "metrics" / f"{metric}.py").read
+
+
+def model(name: str):
+    """The module MODELS/<name>.py of the model `name`.  It holds:
+
+      * the phenotype pool: `phenotype(codes, packed, n, seed, index,
+        config, traffic)`, item `index` of the pool of run `seed` on the
+        design of `codes`, which holds what the fit and the reference are
+        given;
+      * the fit: `inputs(item, probe_seed, traffic)`, what the reference is
+        given of a fit, and `fit(dm, item, iterations, probe_seed, config,
+        traffic)`, the one call into the port's entry point for the model,
+        which returns the engine's result;
+      * the result reader: `answer_of(result)`, the result as the
+        reference's answer, and `finite_and_whole(result, iterations)`;
+      * the reference: `Reference(codes, packed, precision)` with
+        `fits(inputs, config, k)` and `tail(answer, inputs)`, and
+        `readings(answers, inputs, ref, config, k, follow=None)`, the
+        compared numbers that the cell's limits file names.
+    """
+    return _module("models", MODELS / f"{name}.py")
 
 
 def xpass_kernels() -> list[dict]:

@@ -3,6 +3,11 @@ card skipped; the port's kernels run their plain versions), with its
 committed limits: sound, it is correct; with the timed path broken
 underneath, or with the TF32 control in the program's place, it is not.
 
+A cell is tested here where benchmark/tests/small/<cell>.json gives its
+small size (markers, samples, at the full size's M/N); the faults below
+patch the linear engine, and are planted in the cells whose model is
+linear.
+
 The faults: an iteration that returns its state unchanged, from the first
 or, in a cell that compares `tail_gap`, only past the compared head; each
 pass of A x over half the markers, scaled by two (half the batch left out,
@@ -11,6 +16,7 @@ in 10^3 where its kernel produces it.  The cells run on one chip, so there
 is no exchange between chips to leave out."""
 
 import inspect
+import json
 import math
 
 import numpy as np
@@ -21,14 +27,26 @@ import vampomi_tpu_torch.engine.linear as linear
 import vampomi_tpu_torch.ops.operator as operator
 from benchmark import cell, check, spec
 
-# the small sizes, at the full sizes' M/N
-SIZES = {"ns_int8.eigen_fits": (26_112, 256), "ns_int4.eigen_fits": (26_112, 256)}
+SMALL = spec.HERE / "tests" / "small"
 ITERATIONS = 4  # one past the compared head
+
+
+def _sizes() -> dict:
+    """{cell: its small size} of every cell of BENCHMARK.json that has one."""
+    with open(spec.ROOT / "BENCHMARK.json") as f:
+        names = [w["name"] for w in json.load(f)["workloads"]]
+    return {n: json.loads((SMALL / f"{n}.json").read_text())
+            for n in names if (SMALL / f"{n}.json").is_file()}
+
+
+SIZES = _sizes()
+CELLS = list(SIZES)
+LINEAR = [n for n in CELLS if spec.cell(n).config["model"] == "linear"]
 
 
 def small(name: str) -> spec.Cell:
     c = spec.cell(name)
-    m, n = SIZES[name]
+    m, n = SIZES[name]["markers"], SIZES[name]["samples"]
     return c._replace(config=dict(c.config, markers=m, samples=n, iterations=ITERATIONS),
                       traffic=dict(c.traffic, phenotypes=2))
 
@@ -38,7 +56,7 @@ def run(name: str, seed: int = 2**33 + 5) -> dict:
     return cell.run_cell(small(name), seed, 0.0, False, torch.device("cpu"), 0.0)
 
 
-@pytest.mark.parametrize("name", list(SIZES))
+@pytest.mark.parametrize("name", CELLS)
 def test_sound_run_is_correct(name):
     line = run(name)
     assert line["correct"], line["checks"]
@@ -93,42 +111,76 @@ def _answer_altered(monkeypatch):
 
 
 @pytest.mark.parametrize("fault", [_state_unchanged, _half_the_markers, _answer_altered])
-@pytest.mark.parametrize("name", list(SIZES))
+@pytest.mark.parametrize("name", LINEAR)
 def test_a_broken_timed_path_is_not_correct(name, fault, monkeypatch):
     fault(monkeypatch)
     line = run(name)
     assert not line["correct"], line["checks"]
 
 
-@pytest.mark.parametrize("name", [n for n in SIZES if "tail_gap" in spec.cell(n).limits["limits"]])
+@pytest.mark.parametrize("name", [n for n in LINEAR if "tail_gap" in spec.cell(n).limits["limits"]])
 def test_a_state_left_unchanged_past_the_head_is_not_correct(name, monkeypatch):
     _state_unchanged_past_the_head(monkeypatch)
     line = run(name)
     assert not line["correct"], line["checks"]
 
 
-@pytest.mark.parametrize("name", list(SIZES))
+@pytest.mark.parametrize("name", CELLS)
 def test_the_control_in_the_programs_place_is_not_correct(name):
     c = small(name)
     setup = cell.prepare(c, 77, torch.device("cpu"))
     f = cell.fit(setup, 0)
     k = int(c.limits["head_iterations"])
-    h2 = float(c.config["run_config"]["h2"])
-    ref = check.Reference(setup.codes, setup.packed)
-    ctl = check.Reference(setup.codes, setup.packed, "tf32").fits([f.inputs], h2, k)
+    model = setup.model
+    ref = model.Reference(setup.codes, setup.packed)
+    ctl = model.Reference(setup.codes, setup.packed, "tf32").fits([f.inputs], c.config, k)
     # the control in the program's place, judged as a run judges the program
-    control = check.readings(ctl, [f.inputs], ref, h2, k)
+    control = model.readings(ctl, [f.inputs], ref, c.config, k)
     assert not check.verdict(control, c.limits)[0], control
 
 
-def test_a_fit_that_is_not_finite_or_stops_early_failed():
-    res = linear.LinearResult(x1_hat_scaled=np.zeros(3), iterations_run=50, gam1=1.0, gamw=2.0,
-                              probs=np.ones(2), vars=np.ones(2),
-                              metrics_history=[[0.0] * 6] * 50, r1_scaled=np.zeros(3))
-    assert check.finite_and_whole(res, 50)
-    assert not check.finite_and_whole(res._replace(iterations_run=49), 50)
-    assert not check.finite_and_whole(res._replace(gamw=math.nan), 50)
-    assert not check.finite_and_whole(res._replace(r1_scaled=np.array([0.0, math.inf, 0.0])), 50)
+def _not_finite(value):
+    """`value` with its first number infinite, or None where it holds no
+    floating-point numbers."""
+    if isinstance(value, float):
+        return math.inf
+    if isinstance(value, (list, np.ndarray)):
+        try:
+            a = np.array(value, dtype=float)
+        except (TypeError, ValueError):
+            return None
+        if a.size == 0 or (isinstance(value, np.ndarray) and value.dtype.kind != "f"):
+            return None
+        a.flat[0] = math.inf
+        return a if isinstance(value, np.ndarray) else a.tolist()
+    return None
+
+
+def _same(a, b) -> bool:
+    return all(np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_a_fit_that_is_not_finite_or_stops_early_failed(name):
+    """A sound fit's result, stopped one iteration early, fails; so does
+    every value of it made infinite that the answer reads (a value the
+    answer does not read leaves it as it was)."""
+    setup = cell.prepare(small(name), 78, torch.device("cpu"))
+    f = cell.fit(setup, 0)
+    model, res = setup.model, f.result
+    assert f.ok and model.finite_and_whole(res, ITERATIONS)
+    assert not model.finite_and_whole(res._replace(iterations_run=ITERATIONS - 1), ITERATIONS)
+    read = 0
+    for field, value in res._asdict().items():
+        bad = _not_finite(value)
+        if bad is None:
+            continue
+        broken = res._replace(**{field: bad})
+        if model.finite_and_whole(broken, ITERATIONS):
+            assert _same(model.answer_of(broken), model.answer_of(res)), field
+        else:
+            read += 1
+    assert read >= 2  # at least the estimate and the metrics rows
     ok, out = check.verdict({"head_gap": math.nan}, {"limits": {"head_gap": 1.0}})
     assert not ok and math.isnan(out["head_gap"]["value"])
 
@@ -146,12 +198,13 @@ def test_a_fit_cut_inside_the_head_is_held_by_its_state():
     setup = cell.prepare(c, 2**33 + 5, torch.device("cpu"))
     f = cell.fit(setup, 0)
     assert f.ok and f.inputs.probe_seed is not None
-    h2 = float(c.config["run_config"]["h2"])
-    ref = check.Reference(setup.codes, setup.packed)
-    prog = check.readings([check.answer_of(f.result)], [f.inputs], ref, h2, ITERATIONS)
+    model, conf = setup.model, c.config
+    ref = model.Reference(setup.codes, setup.packed)
+    prog = model.readings([model.answer_of(f.result)], [f.inputs], ref, conf, ITERATIONS)
     assert check.verdict(prog, c.limits)[0], prog
-    ctl = check.Reference(setup.codes, setup.packed, "tf32").fits([f.inputs], h2, ITERATIONS)
-    assert not check.verdict(check.readings(ctl, [f.inputs], ref, h2, ITERATIONS), c.limits)[0]
-    wrong = check.answer_of(f.result._replace(r1_scaled=f.result.x1_hat_scaled))
-    assert not check.verdict(check.readings([wrong], [f.inputs], ref, h2, ITERATIONS),
+    ctl = model.Reference(setup.codes, setup.packed, "tf32").fits([f.inputs], conf, ITERATIONS)
+    assert not check.verdict(model.readings(ctl, [f.inputs], ref, conf, ITERATIONS),
+                             c.limits)[0]
+    wrong = model.answer_of(f.result._replace(r1_scaled=f.result.x1_hat_scaled))
+    assert not check.verdict(model.readings([wrong], [f.inputs], ref, conf, ITERATIONS),
                              c.limits)[0]

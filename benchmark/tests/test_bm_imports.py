@@ -21,8 +21,12 @@ from vampomi_tpu_torch.config import RunConfig, resolve_device
 from vampomi_tpu_torch.engine.linear import infere_linear
 from vampomi_tpu_torch.ops.operator import design_from_codes, design_from_packed
 with open(spec.ROOT / "BENCHMARK.json") as f:
-    for m in json.load(f)["per_layer"]:
-        spec.reader(m["name"])
+    bench = json.load(f)
+for m in bench["per_layer"]:
+    spec.reader(m["name"])
+for c in bench["configs"]:
+    with open(spec.ROOT / c["file"]) as f:
+        spec.model(json.load(f)["model"])
 print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
 """
 
