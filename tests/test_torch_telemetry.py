@@ -7,6 +7,7 @@ torch.profiler, the phases as annotations nested in their iteration."""
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -165,3 +166,48 @@ def test_a_gibbs_sweep_counts_no_pass_and_opens_no_span(dm, fx, monkeypatch):
     operator.atx(dm, operator.ax(dm, v))
     operator.atx_batch(dm, operator.ax_batch(dm, v[:, None]))
     assert operator.x_passes() == before + 4 and opened == ["xpass"] * 4
+
+
+PROBIT_SOLVE = ("denoise", "zdenoise", "dense", "zlmmse", "confusion")
+
+
+@pytest.mark.parametrize("solver", ["eigen", "spectral"])
+def test_a_probit_exact_iteration_times_its_z_channel_inside_solve(dm, fx, tmp_path, solver):
+    """Each exact probit iteration records the phase's five spans and its
+    three passes; the spans sum within `solve` and, under torch.profiler,
+    each annotation lies inside a `vampomi.solve` (`confusion` twice an
+    iteration, one a classification half)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = _fit("bin_class", dm, fx, _cfg(tmp_path, solver, rho=0.3, gam1=1e-2),
+                   write_outputs=False)
+    for phases in res.iter_phases:
+        assert set(PROBIT_SOLVE) <= set(phases) and phases["passes"] == 3
+        assert sum(phases[k] for k in PROBIT_SOLVE) <= phases["solve"]
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    events = [e for e in json.load(open(path))["traceEvents"]
+              if e.get("cat") == "user_annotation" and e.get("name", "").startswith("vampomi.")]
+    solves = [(e["ts"], e["ts"] + e["dur"]) for e in events if e["name"] == "vampomi.solve"]
+    assert len(solves) == ITERS
+    for name in PROBIT_SOLVE:
+        got = [(e["ts"], e["ts"] + e["dur"]) for e in events if e["name"] == "vampomi." + name]
+        assert len(got) == ITERS * (2 if name == "confusion" else 1), name
+        assert all(any(a <= s and t <= b for a, b in solves) for s, t in got), name
+
+
+def test_params_history_is_the_params_csv(dm, fx, tmp_path):
+    """One params row a finished iteration, the values the params CSV
+    writes (its "%20.15f" a value)."""
+    from vampomi_tpu_torch.io.csv_writer import read_positional_csv
+
+    res = _fit("bin_class", dm, fx, _cfg(tmp_path, "eigen", rho=0.3, gam1=1e-2))
+    rows = read_positional_csv(os.path.join(tmp_path, "t_params.csv"))
+    assert len(res.params_history) == res.iterations_run == len(rows) == ITERS
+    for it, (params, row) in enumerate(zip(res.params_history, rows), start=1):
+        assert len(params) == 8
+        assert row == [float(it)] + [float("%20.15f" % v) for v in params]
+    off = _fit("bin_class", dm, fx, _cfg(tmp_path, "eigen", rho=0.3, gam1=1e-2),
+               write_outputs=False)
+    np.testing.assert_array_equal(np.asarray(off.params_history), np.asarray(res.params_history))

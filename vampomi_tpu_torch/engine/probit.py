@@ -22,7 +22,11 @@ x2.
 
 As in the linear engine, the phases run eagerly and each iteration's O(1)
 outputs reach the host in ONE batched copy, which is also the iteration's
-synchronisation point.
+synchronisation point.  Inside the loop's `solve` span the phase times
+`denoise` (g1, g1d, alpha1), `zdenoise` (the z-denoisers, beta1, p2, tau2),
+`dense` (an exact solver's N x N step), `zlmmse` (beta2, p1, tau1) and
+`confusion` (both classification halves) as host walls
+(utils/telemetry.py span); each pass over X has its `xpass` span.
 
 Faithful quirks: eta1 uses the UNdamped alpha1 (src/vamp_probit.cpp:130)
 while r2 uses the damped x1_hat; g1 runs with the PREVIOUS iteration's prior
@@ -68,9 +72,9 @@ from ..config import RunConfig
 from ..glm.probit import g1_bin_class, g1d_bin_class
 from ..io.bin_io import HostCopy, HostStager
 from ..ops.cg import cg_solve
-from ..ops.eigen import eigen_solve, eigen_traces
+from ..ops.eigen import eigen_dual_solve, eigen_weights
 from ..ops.operator import DesignMatrix, atx, ax, ax_batch, f64
-from ..ops.spectral import default_nb, shift_inverse, spectral_solve, spectral_traces
+from ..ops.spectral import _trace_closed_forms, default_nb, shift_inverse
 from ..prior.mixture import MixturePrior, g1, g1d, init_prior
 from ..sharding import all_reduce_, all_reduce_many, broadcast_, gather_m, is_writer, local_rows
 from ..utils.async_writer import AsyncWriter
@@ -108,6 +112,9 @@ class ProbitResult(NamedTuple):
     iter_collectives: list | None = None
     # each iteration's {span: host seconds} and "passes" (LinearResult's)
     iter_phases: list | None = None
+    # each iteration's params row [alpha1, beta1, gam1, tau1, alpha2, beta2,
+    # gam2, tau2], as the params CSV writes it
+    params_history: list | None = None
 
 
 def _probit_phase(
@@ -143,42 +150,49 @@ def _probit_phase(
     inv_sqrt_n = c(1.0 / math.sqrt(dm.n))
 
     # ---------- denoise x (src/vamp_probit.cpp:97-165) ----------
-    x1_new = g1(r1, gam1, prior)
-    g1d_sum = all_reduce_((g1d(r1, gam1, prior) * dm.mmask).sum(), dm.shard)
-    alpha1_new = g1d_sum.to(torch.float64) / dm.mt
-    eta1 = gam1 / alpha1_new  # uses UNdamped alpha1 (line 130)
-    if damp:
-        x1_hat = c(rho) * x1_new + c(1.0 - rho) * x1_hat_prev
-        alpha1 = rho * alpha1_new + (1.0 - rho) * alpha1_prev
-    else:
-        x1_hat, alpha1 = x1_new, alpha1_new
+    with span("denoise"):
+        x1_new = g1(r1, gam1, prior)
+        g1d_sum = all_reduce_((g1d(r1, gam1, prior) * dm.mmask).sum(), dm.shard)
+        alpha1_new = g1d_sum.to(torch.float64) / dm.mt
+        eta1 = gam1 / alpha1_new  # uses UNdamped alpha1 (line 130)
+        if damp:
+            x1_hat = c(rho) * x1_new + c(1.0 - rho) * x1_hat_prev
+            alpha1 = rho * alpha1_new + (1.0 - rho) * alpha1_prev
+        else:
+            x1_hat, alpha1 = x1_new, alpha1_new
 
-    gam2 = _clamp(eta1 - gam1)
-    r2_new = (c(eta1) * x1_hat - c(gam1) * r1) / c(gam2)
+        gam2 = _clamp(eta1 - gam1)
+        r2_new = (c(eta1) * x1_hat - c(gam1) * r1) / c(gam2)
 
     # ---------- denoise z (src/vamp_probit.cpp:200-253) ----------
-    z1_hat = g1_bin_class(p1, c(tau1), y, m_cov, c(probit_var))
-    beta1 = g1d_bin_class(p1, c(tau1), y, m_cov, c(probit_var)).sum().to(torch.float64)
-    beta1 = torch.where(beta1 >= dm.n, dm.n - 1.0, beta1) / dm.n
-    p2_new = (z1_hat - c(beta1) * p1) / c(1.0 - beta1)
-    tau2 = tau1 * (1.0 - beta1) / beta1
+    with span("zdenoise"):
+        z1_hat = g1_bin_class(p1, c(tau1), y, m_cov, c(probit_var))
+        beta1 = g1d_bin_class(p1, c(tau1), y, m_cov, c(probit_var)).sum().to(torch.float64)
+        beta1 = torch.where(beta1 >= dm.n, dm.n - 1.0, beta1) / dm.n
+        p2_new = (z1_hat - c(beta1) * p1) / c(1.0 - beta1)
+        tau2 = tau1 * (1.0 - beta1) / beta1
 
     # ---------- LMMSE x (src/vamp_probit.cpp:291-346) ----------
     v = c(tau2) * atx(dm, p2_new) + c(gam2) * r2_new
     cg_iters = 0
     if solver in ("eigen", "spectral"):
         # z1_pred (the denoising metrics, src/vamp_probit.cpp:269-287) shares
-        # the A-pass with A v; z2_hat = A x2_hat is the push-through q
+        # the A-pass with A v; z2_hat = A x2_hat is the push-through
+        # q = S^{-1} A v, S = gam2 I + tau2 K: the N x N step, as the linear
+        # engine's dense_solve takes it, then the third pass, A^T q
         Z = ax_batch(dm, torch.stack([x1_hat * inv_sqrt_n, v], dim=1))
         z1_pred = Z[:, 0]
         av = Z[:, 1]
-        if solver == "eigen":
-            x2_hat, z2_hat = eigen_solve(dm, fac, v, tau2, gam2, av=av)
-            tr_qinv, _ = eigen_traces(fac, dm.mt, tau2, gam2)
-        else:
-            winv = shift_inverse(fac, tau2, gam2, nb=default_nb(fac.n))
-            x2_hat, z2_hat = spectral_solve(dm, fac, v, tau2, gam2, av=av, winv=winv)
-            tr_qinv, _ = spectral_traces(fac, dm.mt, tau2, gam2, winv=winv)
+        with span("dense"):
+            if solver == "eigen":
+                d, T = eigen_weights(fac, tau2, gam2)
+                q = eigen_dual_solve(fac, av, d)
+            else:
+                winv = shift_inverse(fac, tau2, gam2, nb=default_nb(fac.n))
+                q, T = winv.solve(av), winv.T
+            tr_qinv, _ = _trace_closed_forms(T, fac.n, dm.mt, tau2, gam2)
+        x2_hat = (v - c(tau2) * atx(dm, q)) / c(gam2)
+        z2_hat = q
         alpha2 = gam2 * tr_qinv / dm.mt
     elif solver == "cg":
         z1_pred = ax(dm, x1_hat * inv_sqrt_n)
@@ -199,9 +213,10 @@ def _probit_phase(
         raise ValueError(f"unknown LMMSE solver {solver!r}")
 
     # metrics, denoising half (src/vamp_probit.cpp:269-287)
-    y1_hat = (normal_cdf(z1_pred) >= 0.5).to(wd)
-    tp1, tn1, fp1, fn1 = confusion_counts(y, y1_hat)
-    acc1 = (tp1 + tn1).to(torch.float64) / dm.n
+    with span("confusion"):
+        y1_hat = (normal_cdf(z1_pred) >= 0.5).to(wd)
+        tp1, tn1, fp1, fn1 = confusion_counts(y, y1_hat)
+        acc1 = (tp1 + tn1).to(torch.float64) / dm.n
 
     # the error measures over markers, summed over the ranks in one
     # all_reduce: nothing inside the iteration reads them
@@ -214,15 +229,17 @@ def _probit_phase(
     gam1_new = _clamp(gam2 * (1.0 - alpha2) / alpha2)
 
     # ---------- LMMSE z (src/vamp_probit.cpp:351-376) ----------
-    beta2 = dm.mt / dm.n * (1.0 - alpha2)
-    p1_new = (z2_hat - c(beta2) * p2_new) / c(1.0 - beta2)
-    tau1_new = _clamp(tau2 * (1.0 - beta2) / beta2)
+    with span("zlmmse"):
+        beta2 = dm.mt / dm.n * (1.0 - alpha2)
+        p1_new = (z2_hat - c(beta2) * p2_new) / c(1.0 - beta2)
+        tau1_new = _clamp(tau2 * (1.0 - beta2) / beta2)
 
     # metrics, LMMSE half (src/vamp_probit.cpp:402-420); the reference
     # recomputes Ax at x2/sqrt(N) — algebraically z2_hat * inv_sqrt_n
-    y2_hat = (normal_cdf(z2_hat * inv_sqrt_n) >= 0.5).to(wd)
-    tp2, tn2, fp2, fn2 = confusion_counts(y, y2_hat)
-    acc2 = (tp2 + tn2).to(torch.float64) / dm.n
+    with span("confusion"):
+        y2_hat = (normal_cdf(z2_hat * inv_sqrt_n) >= 0.5).to(wd)
+        tp2, tn2, fp2, fn2 = confusion_counts(y, y2_hat)
+        acc2 = (tp2 + tn2).to(torch.float64) / dm.n
 
     counts = [t.to(torch.float64) for t in (tp1, tn1, fp1, fn1, tp2, tn2, fp2, fn2)]
     metrics = torch.stack(counts[:4] + [acc1, x1_corr] + counts[4:] + [acc2, x2_corr])
@@ -330,6 +347,7 @@ def infere_bin_class(
     stager = HostStager(dev)
 
     metrics_history = []
+    params_history = []
     iter_collectives = [] if shard is not None else None
     it_done = 0
     L = prior.L
@@ -398,6 +416,7 @@ def infere_bin_class(
                                   stager.copy((x1_hat, r1_in)), lo)
 
                 metrics_history.append(metrics)
+                params_history.append(params)
                 if write_outputs:
                     out_params.write_row(it, params.tolist())
                     out_metrics.write_row(it, metrics.tolist())
@@ -453,4 +472,5 @@ def infere_bin_class(
         solver=solver,
         iter_collectives=iter_collectives,
         iter_phases=[r.phases for r in tracer.records],
+        params_history=params_history,
     )
