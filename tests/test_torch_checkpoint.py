@@ -213,6 +213,86 @@ def test_generator_advances_alike_under_every_solver(fx, dm, tmp_path):
         np.testing.assert_array_equal(s, g.get_state().numpy())
 
 
+@pytest.fixture(scope="module")
+def probit_dm(probit_problem):
+    return build_design(probit_problem[0].X.T, compute_dtype=torch.float64, device="cpu")
+
+
+def _fit_model(model, fx, dm, probit_problem, probit_dm, tmp, **extra):
+    """(the design, the result) of a `model` fit with kw's seed, no outputs."""
+    if model == "linear":
+        return dm, tlin.infere_linear(dm, fx.y, RunConfig(**kw(tmp, device="cpu", **extra)),
+                                      write_outputs=False)
+    cfg = RunConfig(**kw(tmp, device="cpu", model="bin_class", gam1=1e-2, rho=0.3, **extra))
+    return probit_dm, tprob.infere_bin_class(probit_dm, probit_problem[1], cfg,
+                                             write_outputs=False)
+
+
+def _replayed(model, dm, skips):
+    """A generator seeded as kw seeds a fit, past probit's p1 draw and
+    `skips` plain probe skips."""
+    g = torch.Generator()
+    g.manual_seed(5)
+    if model == "bin_class":
+        tprob._draw_p1(g, int(dm.n), torch.float64, torch.device("cpu"))
+    for _ in range(skips):
+        tlin._skip_probe(g, dm)
+    return g
+
+
+@pytest.mark.parametrize("checkpoint", [False, True])
+@pytest.mark.parametrize("solver", ["cg", "spectral", "eigen"])
+@pytest.mark.parametrize("model", ["linear", "bin_class"])
+def test_probes_are_drawn_only_where_something_reads_them(
+        fx, dm, probit_problem, probit_dm, tmp_path, monkeypatch, model, solver, checkpoint):
+    """An exact solver's probes are owed and never drawn (`probe_draws` 0
+    an iteration) unless a checkpoint reads the generator's state; CG draws
+    its probe every iteration.  Every iteration's saved `rng_state` is that
+    of a generator that drew (or skipped) every probe in its iteration."""
+    saved = {}
+    real_save = tlin.save_checkpoint
+
+    def keep(path, *, iteration, rng_state, **rest):
+        saved[iteration] = np.asarray(rng_state, dtype=np.uint8).copy()
+        real_save(path, iteration=iteration, rng_state=rng_state, **rest)
+
+    monkeypatch.setattr(tlin, "save_checkpoint", keep)
+    extra = dict(checkpoint_file=str(tmp_path / "s.npz")) if checkpoint else {}
+    d, res = _fit_model(model, fx, dm, probit_problem, probit_dm, tmp_path, iterations=3,
+                        lmmse_solver=solver, **extra)
+    assert res.solver == solver and res.iterations_run == 3
+    want = 1 if solver == "cg" or checkpoint else 0
+    assert [p["probe_draws"] for p in res.iter_phases] == [want] * 3
+    assert sorted(saved) == ([1, 2, 3] if checkpoint else [])
+    for k, state in saved.items():
+        np.testing.assert_array_equal(state, _replayed(model, d, k).get_state().numpy())
+
+
+@pytest.mark.parametrize("model", ["linear", "bin_class"])
+def test_cg_resumed_from_an_eigen_checkpoint_draws_the_replayed_probes(
+        fx, dm, probit_problem, probit_dm, tmp_path, monkeypatch, model):
+    """The eigen run owed its two probes until the checkpoint read the
+    state; the CG run resumed from it draws the third and fourth probes of
+    the seed's stream."""
+    ck = str(tmp_path / "e.npz")
+    d, _ = _fit_model(model, fx, dm, probit_problem, probit_dm, tmp_path, iterations=2,
+                      lmmse_solver="eigen", checkpoint_file=ck)
+    drawn = []
+    real_draw = tlin._draw_probe
+
+    def keep(gen, dm_):
+        drawn.append(real_draw(gen, dm_))
+        return drawn[-1]
+
+    monkeypatch.setattr(tlin if model == "linear" else tprob, "_draw_probe", keep)
+    _, res = _fit_model(model, fx, dm, probit_problem, probit_dm, tmp_path, iterations=4,
+                        lmmse_solver="cg", resume_file=ck)
+    assert res.iterations_run == 4 and [p["probe_draws"] for p in res.iter_phases] == [1, 1]
+    g = _replayed(model, d, 2)
+    want = [real_draw(g, d) for _ in range(2)]
+    assert len(drawn) == 2 and all(torch.equal(a, b) for a, b in zip(drawn, want))
+
+
 def test_api_passes_the_checkpoint_file_through(fx, tmp_path):
     ck = str(tmp_path / "api.npz")
     fit = api.fit_linear(fx.X, fx.y, device="cpu", iterations=2, h2=0.8, probs=PROBS3,

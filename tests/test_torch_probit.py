@@ -483,7 +483,7 @@ def test_probit_draws_are_seeded_and_ordered(pair):
     a = tprob._draw_p1(g1, 400, torch.float32, torch.device("cpu"))
     b = tprob._draw_p1(g2, 400, torch.float32, torch.device("cpu"))
     assert a.dtype == torch.float32 and torch.equal(a, b)
-    tprob._skip_probe(g1, tdm)
+    tlin._skip_probe(g1, tdm)
     tlin._draw_probe(g2, tdm)
     assert torch.equal(tlin._draw_probe(g1, tdm), tlin._draw_probe(g2, tdm))
 

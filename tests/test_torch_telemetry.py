@@ -70,6 +70,7 @@ def test_iteration_phases_and_counted_passes(dm, fx, tmp_path, solver, model):
         assert phases["iteration"] == rec["seconds"]
         assert rec["phases"] == phases and rec["matrix_passes"] == phases["passes"]
         assert rec["bytes_moved"] == phases["passes"] * dm.X.numel()
+        assert phases["probe_draws"] == (1 if solver == "cg" else 0)  # no checkpoint
         if solver != "cg":
             assert phases["passes"] == (2 if model == "linear" else 3)
             assert "dense" in phases or model == "bin_class"
@@ -79,6 +80,21 @@ def test_iteration_phases_and_counted_passes(dm, fx, tmp_path, solver, model):
             assert phases["passes"] == 2 * (rec["cg_iters"] + 1) + 3
     around = 1 if model == "linear" else 0  # linear's A^T y, once before the loop
     assert total == around + sum(p["passes"] for p in res.iter_phases)
+
+
+def test_tracer_counters_count_an_iteration_and_stay_out_of_the_line():
+    """A counter puts its increase over an iteration in the phases under
+    its name, as the passes are; the log line lists only walls."""
+    count = [0]
+    tracer = telemetry.Tracer(None, lambda: 0, 1, counters={"draws": lambda: count[0]})
+    for it, n in enumerate((2, 0, 1), start=1):
+        tracer.start()
+        with telemetry.span("probe"):
+            count[0] += n
+        rec = tracer.stop(it, 0)
+        assert rec.phases["draws"] == n and rec.phases["passes"] == 0
+        line = tracer.line(rec)
+        assert "probe" in line and "draws" not in line
 
 
 def test_eigh_solve_is_a_part_of_the_eigh(dm, fx, tmp_path):

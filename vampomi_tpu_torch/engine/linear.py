@@ -36,11 +36,14 @@ of y for the constant A^T y; gamw and the metrics keep the raw y.
 
 `--checkpoint-file` saves the exact state after every iteration, on the IO
 thread (engine/checkpoint.py), and `--resume-file` continues from one,
-appending to the CSVs; the probe generator advances every iteration under
-every solver, so a checkpoint taken under one solver resumes under another
-with the same stream.  `--eigen-cache` keeps K's eigenbasis on disk
-(ops/eigen.py build_eigen_cached), and a warm cache makes "auto" pick eigen
-where it would pick spectral, as in the JAX engine.
+appending to the CSVs; the probe stream (`_ProbeStream`) advances one probe
+an iteration under every solver, so a checkpoint taken under one solver
+resumes under another with the same stream.  An exact solver reads no
+probe: its draws are owed, and made only before the generator's state is
+read, so a run that writes no checkpoint draws none.  `--eigen-cache`
+keeps K's eigenbasis on disk (ops/eigen.py build_eigen_cached), and a warm
+cache makes "auto" pick eigen where it would pick spectral, as in the JAX
+engine.
 
 Sharded over markers (`dm.shard`, sharding.py), each rank runs this loop on
 its slab.  Every sum over markers goes through the sharding helpers, batched
@@ -505,11 +508,10 @@ def _probe_count(dm: DesignMatrix) -> int:
 
 
 def _skip_probe(gen: torch.Generator, dm: DesignMatrix) -> None:
-    """Advance the generator past the probe an exact solver does not use,
-    so the draw sequence stays one probe an iteration whatever the solver
-    (the JAX engines split their key every iteration for the same reason):
+    """Advance the generator past one probe an exact solver does not use:
     the same random numbers `_draw_probe` consumes, nothing copied to the
-    device."""
+    device.  `_ProbeStream` makes these draws only when the generator's
+    state is read."""
     torch.randint(0, 2, (_probe_count(dm),), generator=gen)
 
 
@@ -522,6 +524,41 @@ def _draw_probe(gen: torch.Generator, dm: DesignMatrix) -> torch.Tensor:
                        dm.shard)
     scale = torch.tensor(1.0 / math.sqrt(dm.mt), dtype=dm.wd)
     return (signs.to(dm.wd) * scale).to(dm.device) * dm.mmask
+
+
+class _ProbeStream:
+    """A run's trace probes from its CPU generator, one an iteration under
+    every solver, so the generator's state after k iterations is the same
+    whatever the solver (the JAX engines split their key every iteration
+    for the same reason).  An exact solver reads no probe: `skip` only owes
+    it.  The owed draws are made (`_skip_probe`, one at a time) before
+    anything reads the generator: a CG `draw`, or `state` for a checkpoint.
+    `draws` counts the probe-sized draws made.  `draw_probe` is the engine
+    module's `_draw_probe`, looked up by the engine when the run starts."""
+
+    def __init__(self, gen: torch.Generator, dm: DesignMatrix, draw_probe):
+        self.gen, self.dm, self._draw_probe = gen, dm, draw_probe
+        self.owed = 0
+        self.draws = 0
+
+    def skip(self) -> None:
+        self.owed += 1
+
+    def _settle(self) -> None:
+        for _ in range(self.owed):
+            _skip_probe(self.gen, self.dm)
+        self.draws += self.owed
+        self.owed = 0
+
+    def draw(self) -> torch.Tensor:
+        self._settle()
+        self.draws += 1
+        return self._draw_probe(self.gen, self.dm)
+
+    def state(self) -> torch.Tensor:
+        """The generator's state with every probe so far drawn."""
+        self._settle()
+        return self.gen.get_state()
 
 
 def _log(msg: str):
@@ -581,11 +618,14 @@ def build_lmmse_factor(dm: DesignMatrix, cfg: RunConfig, solver: str, setup: dic
     return solver, ef  # the eigenbasis replaces K
 
 
-def trace_of(dm: DesignMatrix, cfg: RunConfig, write_outputs: bool) -> Tracer:
+def trace_of(dm: DesignMatrix, cfg: RunConfig, write_outputs: bool,
+             probes: _ProbeStream) -> Tracer:
     """The run's Tracer: <out>_trace.jsonl with the outputs on and
-    cfg.trace, each pass over X reading the stored design's bytes."""
+    cfg.trace, each pass over X reading the stored design's bytes, and the
+    probe draws an iteration made counted as "probe_draws"."""
     path = f"{cfg.out_dir}/{cfg.out_name}_trace.jsonl" if write_outputs and cfg.trace else None
-    return Tracer(path, x_passes, dm.X.numel() * dm.X.element_size())
+    return Tracer(path, x_passes, dm.X.numel() * dm.X.element_size(),
+                  counters={"probe_draws": lambda: probes.draws})
 
 
 def open_csvs(cfg: RunConfig) -> tuple[PositionalCSV, PositionalCSV, PositionalCSV]:
@@ -756,7 +796,8 @@ def infere_linear(
         _sync(dev)
     solver, fac = build_lmmse_factor(dm, cfg, solver, setup)
 
-    tracer = trace_of(dm, cfg, write_outputs)
+    probes = _ProbeStream(gen, dm, _draw_probe)
+    tracer = trace_of(dm, cfg, write_outputs, probes)
 
     # device→host artifact IO overlaps the next iteration's compute: the
     # copies run on a side stream (HostStager), the f64 scaling and the
@@ -791,7 +832,7 @@ def infere_linear(
             r1_in = r1  # the r1 this iteration denoises; dumped to _r1_it_<k>.bin
             if solver == "cg":
                 with span("probe"):
-                    bern = _draw_probe(gen, dm)
+                    bern = probes.draw()
             with span("solve"):
                 if solver == "eigen":
                     out = _iteration_phase_eigen(
@@ -812,7 +853,7 @@ def infere_linear(
                     )
             if solver != "cg":
                 with span("probe"):
-                    _skip_probe(gen, dm)  # while the device works
+                    probes.skip()
 
             gam1_pre = gam1  # params CSV records the pre-LMMSE gam1
             x1_hat = out["x1_hat"]
@@ -874,7 +915,7 @@ def infere_linear(
                         writer.submit(
                             checkpoint_iteration, cfg, "linear", dm, it, copy, names,
                             dict(y_adj=y_adj_host), dict(gam1=gam1_h, gamw=gamw_h),
-                            dict(probs=probs_h, vars=vars_h, active=act), gen.get_state(),
+                            dict(probs=probs_h, vars=vars_h, active=act), probes.state(),
                         )
                 if shard is not None:
                     iter_collectives.append(shard.collectives() - coll0)

@@ -38,12 +38,14 @@ linear header (src/vamp.cpp:72-77 + vamp_probit.cpp:22).
 
 Random draws come from one CPU torch.Generator seeded with --seed: the
 initial p1 ~ N(0, 1)^N first (src/vamp_probit.cpp:53), then one Rademacher
-probe an iteration, drawn whether or not the solver uses it, as the JAX
-engine splits its key.  One seed gives the same draws on the CPU and on a
-card.  Checkpoint/resume and the eigen cache work as in the linear engine
-(engine/checkpoint.py, ops/eigen.py); the probit state adds r2, p1, p2 and
-the covariate offsets.  The JAX engine's compile-ahead threads are a TPU
-workaround with no counterpart.
+probe an iteration under every solver, as the JAX engine splits its key
+(the linear engine's `_ProbeStream`: an exact solver's probes are owed, and
+drawn only before a checkpoint reads the generator's state).  One seed
+gives the same draws on the CPU and on a card.  Checkpoint/resume and the
+eigen cache work as in the linear engine (engine/checkpoint.py,
+ops/eigen.py); the probit state adds r2, p1, p2 and the covariate offsets.
+The JAX engine's compile-ahead threads are a TPU workaround with no
+counterpart.
 
 Sharded over markers (`dm.shard`, sharding.py), each rank runs this loop on
 its slab, as the linear engine does.  The sums over markers meet the other
@@ -82,7 +84,7 @@ from ..utils.mathx import normal_cdf
 from ..utils.telemetry import span
 from .checkpoint import load_resume
 from .linear import (
-    _clamp, _draw_probe, _em_phase, _log, _m_global, _nmse_from, _nmse_sums, _skip_probe,
+    _clamp, _draw_probe, _em_phase, _log, _m_global, _nmse_from, _nmse_sums, _ProbeStream,
     build_lmmse_factor, checkpoint_iteration, choose_lmmse_solver, dump_iteration,
     fit_covariates, open_csvs, restore_generator, restore_prior, restore_vectors, trace_of,
     warn_em_stability,
@@ -341,7 +343,8 @@ def infere_bin_class(
     if write_outputs:
         out_metrics, out_params, out_prior = open_csvs(cfg)
     solver, fac = build_lmmse_factor(dm, cfg, solver, setup)
-    tracer = trace_of(dm, cfg, write_outputs)
+    probes = _ProbeStream(gen, dm, _draw_probe)
+    tracer = trace_of(dm, cfg, write_outputs, probes)
 
     writer = AsyncWriter()
     stager = HostStager(dev)
@@ -364,7 +367,7 @@ def infere_bin_class(
             r1_in = r1  # the r1 this iteration denoises; dumped to _r1_it_<k>.bin
             if not exact:
                 with span("probe"):
-                    bern = _draw_probe(gen, dm)
+                    bern = probes.draw()
             with span("solve"):
                 out = _probit_phase(
                     dm, y_t, m_cov, r1, r2, p1, p2,
@@ -376,7 +379,7 @@ def infere_bin_class(
                 )
             if exact:
                 with span("probe"):
-                    _skip_probe(gen, dm)  # while the device works
+                    probes.skip()
 
             # EM prior update for the NEXT iteration (g1 above used the old
             # prior; the reference calls updatePrior after the denoiser,
@@ -441,7 +444,7 @@ def infere_bin_class(
                         writer.submit(
                             checkpoint_iteration, cfg, "bin_class", dm, it, copy, names, {},
                             dict(gam1=gam1_h, tau1=tau1_h, gam2=params[6], alpha1=params[0]),
-                            dict(probs=probs_h, vars=vars_h, active=act), gen.get_state(),
+                            dict(probs=probs_h, vars=vars_h, active=act), probes.state(),
                         )
                 if shard is not None:
                     iter_collectives.append(shard.collectives() - coll0)

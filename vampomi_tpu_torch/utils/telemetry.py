@@ -15,7 +15,8 @@ never synchronise.
 
 Each engine iteration records an `IterationTelemetry`: its wall, its CG
 steps, the passes over X that `ops/operator.py` counted during it and the
-bytes they read, and its phases' walls.  The engine stops the clock after
+bytes they read, its phases' walls, and what the engine's own counters
+counted during it (the probe draws).  The engine stops the clock after
 the iteration's one batched host fetch of its scalars, which waits for the
 device, so `seconds` is wall time of finished work.  Records are printed
 humanely and optionally appended to `<out>_trace.jsonl`.
@@ -77,17 +78,20 @@ class IterationTelemetry:
     matrix_passes: int      # full reads of the design, counted at the operator
     bytes_moved: int        # those passes times the stored design's bytes
     extra: dict = field(default_factory=dict)
-    phases: dict = field(default_factory=dict)  # {span: seconds} and "passes"
+    phases: dict = field(default_factory=dict)  # {span: seconds}, "passes" and the counters
 
 
 class Tracer:
     """The iterations of one engine run.  `passes()` reads the process's
-    count of passes over the design, `x_bytes` is what one pass reads."""
+    count of passes over the design, `x_bytes` is what one pass reads;
+    each of `counters` ({name: a function reading a running count}) puts
+    the iteration's increase of its count in the phases under its name."""
 
-    def __init__(self, path: str | None, passes, x_bytes: int):
+    def __init__(self, path: str | None, passes, x_bytes: int, counters: dict | None = None):
         self.path = path if is_writer() else None  # rank 0 writes the trace
         self.passes = passes
         self.x_bytes = int(x_bytes)
+        self.counters = counters or {}
         self.records: list[IterationTelemetry] = []
         self.total_comp_time = 0.0
         self._iteration = None
@@ -99,6 +103,7 @@ class Tracer:
         global _open
         _open = {}
         self._p0 = self.passes()
+        self._c0 = {name: read() for name, read in self.counters.items()}
         self._iteration = span("iteration").__enter__()
 
     def stop(self, iteration: int, cg_iters: int, **extra) -> IterationTelemetry:
@@ -109,6 +114,8 @@ class Tracer:
         passes = self.passes() - self._p0
         phases = {name: ns * 1e-9 for name, ns in walls.items()}  # "iteration" among them
         phases["passes"] = passes
+        for name, read in self.counters.items():
+            phases[name] = read() - self._c0[name]
         self.total_comp_time += phases["iteration"]
         rec = IterationTelemetry(
             iteration=iteration,
@@ -135,6 +142,6 @@ class Tracer:
     def line(self, rec: IterationTelemetry) -> str:
         """The log line of an iteration: its wall, passes and phases."""
         walls = ", ".join(f"{k} {1e3 * v:.2f}" for k, v in rec.phases.items()
-                          if k not in ("iteration", "passes"))
+                          if k not in ("iteration", "passes", *self.counters))
         return (f"iteration time = {rec.seconds:.3f}s  ({rec.matrix_passes} matrix passes; "
                 f"ms: {walls})  total = {self.total_comp_time:.3f}s")
