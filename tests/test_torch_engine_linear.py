@@ -149,7 +149,7 @@ def test_eigen_iteration_phase_matches_jax(pair, state, eig_pair, damp):
         jdm, jef, aty_j, jnp.asarray(s["y"]), jnp.asarray(s["r1"]), jnp.asarray(s["gam1"]),
         jp, jnp.asarray(s["x1_prev"]), jnp.asarray(damp), jnp.asarray(s["rho"]),
         jnp.asarray(s["gamw"]), jnp.asarray(s["ts"]))
-    got = tlin._iteration_phase_eigen(
+    got = tlin._iteration_phase_exact(
         tdm, tef, torch.tensor(np.asarray(aty_j)), torch.as_tensor(s["y"]),
         torch.as_tensor(s["r1"]), s["gam1"], tp, torch.as_tensor(s["x1_prev"]), damp,
         s["rho"], s["gamw"], torch.as_tensor(s["ts"]))

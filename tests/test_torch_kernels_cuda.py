@@ -50,7 +50,7 @@ from vampomi_tpu_torch.ops.packed4 import (
 from vampomi_tpu_torch.ops.stream import (
     stream_rowsum, stream_rowsum_plain, stream_sum, stream_sum_plain,
 )
-from vampomi_tpu_torch.ops.spectral import GramFactor, shift_cholesky, shift_inverse
+from vampomi_tpu_torch.ops.spectral import GramFactor, shift_inverse
 from vampomi_tpu_torch.sim.data_sim import simulate_iid
 from vampomi_tpu_torch.tools import KERNEL_TOL
 
@@ -407,8 +407,8 @@ def test_shift_inverse_on_card_matches_f64(cuda_device, n, nb):
         got.solve(torch.as_tensor(b, dtype=torch.float32, device=cuda_device)).cpu().numpy(),
         want.solve(torch.as_tensor(b)).numpy(), rtol=1e-4, atol=1e-5 * np.abs(b).max())
     with pytest.raises(RuntimeError, match="not positive definite"):
-        shift_cholesky(GramFactor(K=torch.as_tensor(K, dtype=torch.float32,
-                                                    device=cuda_device)), -tau, gam2)
+        shift_inverse(GramFactor(K=torch.as_tensor(K, dtype=torch.float32,
+                                                   device=cuda_device)), -tau, gam2, nb=nb)
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, top.PACKED4_DTYPE, torch.bfloat16])

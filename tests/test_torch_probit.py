@@ -266,8 +266,8 @@ def test_probit_phase_matches_jax(pair, factors, state, solver, damp):
     got = tprob._probit_phase(
         tdm, *(torch.as_tensor(s[k]) for k in vecs), s["gam1"], s["tau1"], s["alpha1"],
         tp, torch.as_tensor(s["x1_prev"]), damp, s["rho"], s["probit_var"],
-        torch.as_tensor(s["bern"]), torch.as_tensor(s["ts"]), 500, 1e-7,
-        fac=tfac, solver=solver)
+        torch.as_tensor(s["bern"]) if tfac is None else None, torch.as_tensor(s["ts"]),
+        500, 1e-7, fac=tfac)
     _compare_outputs(got, want, rtol=PHASE_RTOL)
     assert 0 < float(got["metrics"][4]) <= 1 and 0 < float(got["metrics"][10]) <= 1
 
@@ -283,7 +283,7 @@ def test_probit_phase_beta1_clamp(pair, state):
     out = tprob._probit_phase(
         tdm, *(torch.as_tensor(s[k]) for k in ("y", "m_cov", "r1", "r2")),
         p1, torch.as_tensor(s["p2"]), s["gam1"], s["tau1"], s["alpha1"], tp, torch.as_tensor(s["x1_prev"]), False, 0.3, 1.0,
-        torch.as_tensor(s["bern"]), torch.as_tensor(s["ts"]), 500, 1e-7, solver="cg")
+        torch.as_tensor(s["bern"]), torch.as_tensor(s["ts"]), 500, 1e-7)
     n = tdm.n
     assert float(out["params"][1]) == (n - 1.0) / n
 

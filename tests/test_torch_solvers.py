@@ -1,5 +1,5 @@
 """The port's LMMSE solvers — multi-RHS CG, the Gram build and the eigen
-solve — and the engine metrics against the JAX package on the CPU in f64.
+factor's solve — and the engine metrics against the JAX package on the CPU in f64.
 JAX state (DesignMatrix, EigenFactor) is carried over by convert.py so both
 compute on identical inputs."""
 
@@ -18,6 +18,7 @@ from vampomi_tpu_torch.engine import metrics as tmet
 from vampomi_tpu_torch.ops import cg as tcg
 from vampomi_tpu_torch.ops import eigen as teig
 from vampomi_tpu_torch.ops import spectral as tspec
+from vampomi_tpu_torch.ops.operator import atx, ax
 from vampomi_tpu_torch.sim.data_sim import simulate_iid
 
 torch.set_num_threads(2)
@@ -88,23 +89,32 @@ def eig_pair(pair):
 
 @pytest.mark.parametrize("tau,gam2", [(2.0, 0.5), (40.0, 1e-3)])
 def test_eigen_weights_and_traces_match_jax(pair, eig_pair, tau, gam2):
+    """The weights, T and both closed forms of EigenFactor.solve against
+    JAX's eigen_weights and eigen_traces."""
     jdm, tdm, _ = pair
     jef, tef = eig_pair
     d_j, T_j = jeig.eigen_weights(jef, tau, gam2)
     d_t, T_t = teig.eigen_weights(tef, tau, gam2)
     np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), rtol=1e-14)
     np.testing.assert_allclose(T_t.item(), float(T_j), rtol=1e-14)
-    for a, b in zip(teig.eigen_traces(tef, tdm.mt, tau, gam2),
-                    jeig.eigen_traces(jef, jdm.mt, tau, gam2)):
+    _, *got = tef.solve(torch.ones(tef.n, dtype=torch.float64), tau, gam2, tdm.mt)
+    assert len(got) == 2
+    for a, b in zip(got, jeig.eigen_traces(jef, jdm.mt, tau, gam2)):
+        assert a.dtype == torch.float64
         np.testing.assert_allclose(a.item(), float(b), rtol=1e-12)
 
 
-def test_eigen_solve_matches_jax(pair, eig_pair):
+@pytest.mark.parametrize("tau,gam2", [(4.0, 0.3), (40.0, 1e-3), (0.3, 40.0)])
+def test_eigen_solve_matches_jax(pair, eig_pair, tau, gam2):
+    """q = S^{-1} A v of EigenFactor.solve, and mu = (v - tau A^T q) / gam2
+    as the engines form it, against JAX's eigen_solve."""
     jdm, tdm, _ = pair
     jef, tef = eig_pair
     v = np.random.default_rng(3).normal(size=tdm.m_pad)
-    mu_j, q_j = jeig.eigen_solve(jdm, jef, jnp.asarray(v), 4.0, 0.3)
-    mu_t, q_t = teig.eigen_solve(tdm, tef, torch.as_tensor(v), 4.0, 0.3)
+    mu_j, q_j = jeig.eigen_solve(jdm, jef, jnp.asarray(v), tau, gam2)
+    tv = torch.as_tensor(v)
+    q_t, *_ = tef.solve(ax(tdm, tv), tau, gam2, tdm.mt)
+    mu_t = (tv - tau * atx(tdm, q_t)) / gam2
     np.testing.assert_allclose(mu_t.numpy(), np.asarray(mu_j), rtol=1e-9, atol=1e-12)
     np.testing.assert_allclose(q_t.numpy(), np.asarray(q_j), rtol=1e-9, atol=1e-12)
 

@@ -2,8 +2,9 @@
 spectral phase of engine/linear.py) against the JAX package's on the CPU.
 
 The dense pieces are compared in f64 on identical inputs (JAX state carried
-over by convert.py): the blocked factor, its recursion and the blocked
-Cholesky run the JAX package's algorithm at the same block counts; whole
+over by convert.py): the blocked factor and its recursion run the JAX
+package's algorithm at the same block counts, and the Gram factor's one
+method, `GramFactor.solve`, is held to each of JAX's solve routes; whole
 spectral trajectories in f64 against
 vampomi_tpu.engine.linear.infere_linear(lmmse_solver="spectral") to rtol 1e-6,
 as the eigen trajectory is held; the int8 design as the eigen int8 test holds
@@ -29,7 +30,7 @@ from vampomi_tpu_torch.engine import linear as tlin
 from vampomi_tpu_torch.io.bin_io import read_bin_slab
 from vampomi_tpu_torch.io.csv_writer import read_positional_csv
 from vampomi_tpu_torch.ops import spectral as tspec
-from vampomi_tpu_torch.ops.operator import build_design
+from vampomi_tpu_torch.ops.operator import atx, ax, build_design
 from vampomi_tpu_torch.sim.data_sim import simulate_iid
 from vampomi_tpu_torch.tools import dense_step_probe
 
@@ -121,16 +122,6 @@ def test_factor_diag_matches_jax(b, base, monkeypatch):
         np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12 * np.abs(want).max())
 
 
-def test_blocked_cholesky_matches_jax():
-    """_blocked_cholesky at N = 600 over 4 blocks against JAX's in f64."""
-    S = _spd(600, 1)
-    want = np.asarray(jspec._blocked_cholesky(jnp.asarray(S), 4))
-    infos = []
-    got = tspec._blocked_cholesky(torch.as_tensor(S).clone(), 4, infos).numpy()
-    assert [off for off, _ in infos] == [0, 150, 300, 450]
-    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12 * np.abs(want).max())
-
-
 @pytest.mark.parametrize("tau,gam2", SHIFTS)
 def test_shift_inverse_ragged_blocks_match_jax(tau, gam2):
     """N = 601 over 4 blocks (150, 150, 150, 151 rows, each one leaf at
@@ -155,27 +146,27 @@ def test_default_nb_against_jax(n, port, jax):
     assert (tspec.default_nb(n), jspec.default_nb(n)) == (port, jax)
 
 
-@pytest.mark.parametrize("tau,gam2", SHIFTS)
-def test_shift_cholesky_matches_jax(pair, tau, gam2):
-    _, jfac, _, tfac = pair
-    want = np.asarray(jspec.shift_cholesky(jfac, tau, gam2))
-    got = tspec.shift_cholesky(tfac, tau, gam2).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12 * np.abs(want).max())
+def _jax_route(jfac, route, tau, gam2):
+    """JAX's spectral_solve / spectral_traces keywords for `route`: its
+    inverse factor, its shift Cholesky, or neither (factored inside)."""
+    if route == "winv":
+        return {"winv": jspec.shift_inverse(jfac, tau, gam2)}
+    return {"L": jspec.shift_cholesky(jfac, tau, gam2)} if route == "L" else {}
 
 
 @pytest.mark.parametrize("route", ["winv", "L", "none"])
 @pytest.mark.parametrize("tau,gam2", SHIFTS)
 def test_spectral_solve_matches_jax(pair, route, tau, gam2):
-    """mu and q = A mu through the inverse factor, a shift Cholesky, or one
-    factored inside; A v given or not."""
+    """q = S^{-1} A v of GramFactor.solve, and mu = (v - tau A^T q) / gam2
+    as the engines form it, against JAX's spectral_solve through its
+    inverse factor, its shift Cholesky or one factored inside."""
     jdm, jfac, tdm, tfac = pair
     v = np.random.default_rng(0).normal(size=tdm.m_pad)
-    jkw = {"winv": jspec.shift_inverse(jfac, tau, gam2)} if route == "winv" else (
-        {"L": jspec.shift_cholesky(jfac, tau, gam2)} if route == "L" else {})
-    tkw = {"winv": tspec.shift_inverse(tfac, tau, gam2)} if route == "winv" else (
-        {"L": tspec.shift_cholesky(tfac, tau, gam2)} if route == "L" else {})
-    jmu, jq = jspec.spectral_solve(jdm, jfac, jnp.asarray(v), tau, gam2, **jkw)
-    tmu, tq = tspec.spectral_solve(tdm, tfac, torch.as_tensor(v), tau, gam2, **tkw)
+    jmu, jq = jspec.spectral_solve(jdm, jfac, jnp.asarray(v), tau, gam2,
+                                   **_jax_route(jfac, route, tau, gam2))
+    tv = torch.as_tensor(v)
+    tq, *_ = tfac.solve(ax(tdm, tv), tau, gam2, tdm.mt)
+    tmu = (tv - tau * atx(tdm, tq)) / gam2
     np.testing.assert_allclose(tmu.numpy(), np.asarray(jmu), rtol=1e-9, atol=1e-12)
     np.testing.assert_allclose(tq.numpy(), np.asarray(jq), rtol=1e-9, atol=1e-12)
 
@@ -183,15 +174,14 @@ def test_spectral_solve_matches_jax(pair, route, tau, gam2):
 @pytest.mark.parametrize("route", ["winv", "L", "none"])
 @pytest.mark.parametrize("tau,gam2", SHIFTS)
 def test_spectral_traces_match_jax(pair, route, tau, gam2):
-    """Both closed forms from the inverse factor's T or from ||L^{-1}||_F^2,
-    against JAX's (whose L route is its blocked forward substitution)."""
-    jdm, jfac, _, tfac = pair
-    jkw = {"winv": jspec.shift_inverse(jfac, tau, gam2)} if route == "winv" else (
-        {"L": jspec.shift_cholesky(jfac, tau, gam2)} if route == "L" else {})
-    tkw = {"winv": tspec.shift_inverse(tfac, tau, gam2)} if route == "winv" else (
-        {"L": tspec.shift_cholesky(tfac, tau, gam2)} if route == "L" else {})
-    want = jspec.spectral_traces(jfac, jdm.mt, tau, gam2, **jkw)
-    got = tspec.spectral_traces(tfac, jdm.mt, tau, gam2, **tkw)
+    """Both closed forms of GramFactor.solve, from the inverse factor's T,
+    against JAX's from its inverse factor's T or from ||L^{-1}||_F^2 (its
+    blocked forward substitution)."""
+    jdm, jfac, tdm, tfac = pair
+    want = jspec.spectral_traces(jfac, jdm.mt, tau, gam2, **_jax_route(jfac, route, tau, gam2))
+    b = torch.as_tensor(np.random.default_rng(0).normal(size=tfac.n))
+    _, *got = tfac.solve(b, tau, gam2, jdm.mt)
+    assert len(got) == 2
     for g, w in zip(got, want):
         assert g.dtype == torch.float64
         np.testing.assert_allclose(float(g), float(w), rtol=1e-11)
@@ -212,11 +202,10 @@ def test_failed_cholesky_raises_never_nan(pair, dtype):
     raises, naming the shift; it returns no NaNs and swaps in no solver."""
     *_, tfac = pair
     fac = tspec.GramFactor(K=tfac.K.to(dtype))
-    for fn in (tspec.shift_cholesky, tspec.shift_inverse):
-        with pytest.raises(RuntimeError, match="not positive definite"):
-            fn(fac, -2.5, 0.7)
-    with pytest.raises(RuntimeError, match="leading minor"):
-        tspec.spectral_traces(fac, 500, -2.5, 0.7)
+    with pytest.raises(RuntimeError, match="not positive definite"):
+        tspec.shift_inverse(fac, -2.5, 0.7)
+    with pytest.raises(RuntimeError, match="leading minor .*not positive definite"):
+        fac.solve(torch.ones(fac.n, dtype=dtype), -2.5, 0.7, 500)
 
 
 @pytest.mark.parametrize("base", BASES)
@@ -228,7 +217,7 @@ def test_factor_failing_in_the_third_block_names_its_minor(dtype, base, monkeypa
     fails; the raise names global minor 351 (the block's offset 300 plus
     its leaf's info 51), as it does over the single block's recursion (at
     leaf size 256 the leaf at offset 256 reports 95, at 512 the leaf at 0
-    reports 351), the blocked Cholesky and the trace; nothing returns."""
+    reports 351), and through the factor's solve; nothing returns."""
     monkeypatch.setattr(tspec, "_FACTOR_BASE", base)
     n, p = 600, 350
     rng = np.random.default_rng(8)
@@ -239,8 +228,8 @@ def test_factor_failing_in_the_third_block_names_its_minor(dtype, base, monkeypa
     fac = tspec.GramFactor(K=torch.as_tensor(S - 0.5 * np.eye(n), dtype=dtype))
     calls = [lambda: tspec.shift_inverse(fac, 1.0, 0.5, nb=4),
              lambda: tspec.shift_inverse(fac, 1.0, 0.5),
-             lambda: tspec.shift_cholesky(fac, 1.0, 0.5),
-             lambda: tspec.spectral_traces(fac, 2 * n, 1.0, 0.5)]
+             lambda: fac.solve(torch.ones(n, dtype=dtype), 1.0, 0.5, 2 * n),
+             lambda: fac.solve(torch.zeros(n, dtype=dtype), 1.0, 0.5, n)]
     for call in calls:
         with pytest.raises(RuntimeError, match=f"leading minor {p + 1} of {n} .*not positive"):
             call()
@@ -274,6 +263,55 @@ def test_engines_take_the_blocked_route(fx, tmp_path, monkeypatch, model):
                                      write_outputs=False)
     assert res.solver == "spectral" and np.all(np.isfinite(res.x1_hat_scaled))
     assert calls == [(300, tspec.default_nb(300))] * 2
+
+
+def _fit(model, dm, fx, cfg):
+    from vampomi_tpu_torch.engine import probit as tprob
+
+    if model == "linear":
+        return tlin.infere_linear(dm, fx.y, cfg, write_outputs=False)
+    return tprob.infere_bin_class(dm, (fx.y > 0).astype(np.float64), cfg, write_outputs=False)
+
+
+@pytest.mark.parametrize("solver", ["spectral", "eigen"])
+@pytest.mark.parametrize("model", ["linear", "bin_class"])
+def test_exact_iterations_take_the_factors_solve(fx, tmp_path, monkeypatch, model, solver):
+    """Both engines' exact iterations take their N x N step through the
+    factor's one method, once an iteration, with A v of the N samples and
+    the Mt markers; nothing else of the factor's solves runs."""
+    from vampomi_tpu_torch.ops import eigen as teig
+
+    factor = {"spectral": tspec.GramFactor, "eigen": teig.EigenFactor}[solver]
+    calls, real = [], factor.solve
+
+    def spy(self, av, tau, gam2, mt):
+        calls.append((type(self), tuple(av.shape), mt))
+        return real(self, av, tau, gam2, mt)
+
+    monkeypatch.setattr(factor, "solve", spy)
+    dm = build_design(fx.X.T, compute_dtype=torch.float64, device="cpu")
+    cfg = RunConfig(**cfg_kw(tmp_path, iterations=3, lmmse_solver=solver, device="cpu",
+                             model=model, stop_criteria_thr=0.0))
+    res = _fit(model, dm, fx, cfg)
+    assert res.solver == solver and res.iterations_run == 3
+    assert calls == [(factor, (300,), dm.mt)] * 3
+
+
+@pytest.mark.parametrize("model", ["linear", "bin_class"])
+def test_an_unknown_solver_raises_before_any_pass(fx, tmp_path, model):
+    """An unknown --lmmse-solver raises from choose_lmmse_solver before the
+    engine reads X once."""
+    from vampomi_tpu_torch.ops import operator as top
+
+    dm = build_design(fx.X.T, compute_dtype=torch.float64, device="cpu")
+    cfg = RunConfig(**cfg_kw(tmp_path, iterations=2, lmmse_solver="cholesky", device="cpu",
+                             model=model))
+    passes = top.x_passes()
+    with pytest.raises(ValueError, match="unknown LMMSE solver 'cholesky'"):
+        _fit(model, dm, fx, cfg)
+    assert top.x_passes() == passes
+    with pytest.raises(ValueError, match="unknown LMMSE solver 'cholesky'"):
+        tlin.choose_lmmse_solver(cfg, dm.mt, int(dm.n))
 
 
 def test_dense_step_probe_small_on_cpu(capsys):
@@ -317,7 +355,7 @@ def test_spectral_iteration_phase_matches_jax(pair, state, damp):
         jdm, jfac, aty_j, jnp.asarray(s["y"]), jnp.asarray(s["r1"]), jnp.asarray(s["gam1"]),
         jp, jnp.asarray(s["x1_prev"]), jnp.asarray(damp), jnp.asarray(s["rho"]),
         jnp.asarray(s["gamw"]), jnp.asarray(s["ts"]))
-    got = tlin._iteration_phase_spectral(
+    got = tlin._iteration_phase_exact(
         tdm, tfac, torch.tensor(np.asarray(aty_j)), torch.as_tensor(s["y"]),
         torch.as_tensor(s["r1"]), s["gam1"], tp, torch.as_tensor(s["x1_prev"]), damp,
         s["rho"], s["gamw"], torch.as_tensor(s["ts"]))

@@ -145,7 +145,7 @@ def test_a_raise_inside_an_iteration_closes_it(dm, fx, tmp_path, monkeypatch):
     def fail(*a, **k):
         raise RuntimeError("failed inside the iteration")
 
-    monkeypatch.setattr(tlin, "_iteration_phase_eigen", fail)
+    monkeypatch.setattr(tlin, "_iteration_phase_exact", fail)
     with pytest.raises(RuntimeError):
         _fit("linear", dm, fx, _cfg(tmp_path, "eigen"), write_outputs=False)
     assert telemetry._open is None

@@ -7,12 +7,13 @@ A host loop writes the per-iteration artifacts around these phases:
                                   (reference src/vamp.cpp:531-643)
   * `_iteration_phase`          — denoising + CG LMMSE + Hutchinson Onsager +
                                   noise-precision update + error measures
-  * `_iteration_phase_spectral` — the same with an exact LMMSE solve: one
-    `_iteration_phase_eigen`      two-column ax_batch pass and one atx pass
-                                  over X per iteration, the N x N step by a
-                                  per-iteration factor of S = gam2 I + gamw K
-                                  (spectral) or in K's once-per-dataset
-                                  eigenbasis (eigen)
+  * `_iteration_phase_exact`    — the same with an exact LMMSE solve: one
+                                  two-column ax_batch pass and one atx pass
+                                  over X per iteration, the N x N step by the
+                                  factor's `solve` (ops/spectral.py
+                                  GramFactor: a per-iteration factor of
+                                  S = gam2 I + gamw K; ops/eigen.py
+                                  EigenFactor: K's once-per-dataset eigenbasis)
 
 PyTorch runs eagerly, so the phases are plain functions; each iteration's
 O(1) outputs reach the host in ONE batched copy, which is also the
@@ -73,13 +74,9 @@ from ..glm.probit import newton_method_cov
 from ..io.bin_io import HostCopy, HostStager, iteration_file, write_marker_file
 from ..io.csv_writer import PositionalCSV
 from ..ops.cg import cg_solve
-from ..ops.eigen import (
-    EigenFactor, build_eigen, build_eigen_cached, cache_plausible, eigen_dual_solve, eigen_weights,
-)
+from ..ops.eigen import build_eigen, build_eigen_cached, cache_plausible
 from ..ops.operator import DesignMatrix, atx, ax, ax_batch, f64, x_passes
-from ..ops.spectral import (
-    GramFactor, _trace_closed_forms, build_spectral, default_nb, shift_inverse,
-)
+from ..ops.spectral import build_spectral
 from ..prior.mixture import (
     MixturePrior, em_update, g1, g1d, init_prior, merge_components_device,
 )
@@ -304,7 +301,7 @@ def _iteration_phase(
 
 def _iteration_phase_exact(
     dm: DesignMatrix,
-    dense_solve,      # (A v, gamw, gam2) -> (q = S^{-1} A v, T = tr S^{-1} f64)
+    fac,              # GramFactor (spectral) or EigenFactor (eigen)
     aty_adj,
     y_raw,
     r1,
@@ -319,8 +316,8 @@ def _iteration_phase_exact(
     """One linear-VAMP iteration with an exact LMMSE solve (JAX
     engine/linear.py:255-365 spectral, 368-482 eigen): X is read twice — one
     two-column ax_batch pass for z1 = A x1 and A v, one atx pass for A^T q —
-    and both traces are closed forms of T.  The two solvers differ only in
-    `dense_solve`, the N x N step that gives q and T."""
+    and the N x N step, q = S^{-1} A v with both traces in closed form, is
+    `fac.solve`, the one place the two solvers differ."""
     wd = dm.wd
     dev = dm.device
     c = lambda s: f64(s, dev).to(wd)  # noqa: E731
@@ -345,13 +342,12 @@ def _iteration_phase_exact(
     z1 = Z[:, 0]
     av = Z[:, 1]
     with span("dense"):
-        q, T = dense_solve(av, gamw, gam2)    # q = S^{-1} A v == A x2_hat
+        q, tr_qinv, tr_ata_qinv = fac.solve(av, gamw, gam2, dm.mt)  # q == A x2_hat
     x2_hat = (v - c(gamw) * atx(dm, q)) / c(gam2)
     z2 = q
 
     r2_den, corr_y2_den = prediction_metrics(z1, y_raw)
 
-    tr_qinv, tr_ata_qinv = _trace_closed_forms(T, int(dm.n), dm.mt, gamw, gam2)
     alpha2 = gam2 * tr_qinv / dm.mt
     eta2 = gam2 / alpha2
     gam1_new = _clamp(eta2 - gam2)
@@ -391,30 +387,6 @@ def _iteration_phase_exact(
     )
 
 
-def _iteration_phase_eigen(dm: DesignMatrix, ef: EigenFactor, *args) -> dict:
-    """The exact iteration with the eigen-LMMSE solve (JAX
-    engine/linear.py:368-482): S^{-1} A v as two N^2 matvecs in the
-    once-per-dataset eigenbasis of K, T from the eigenvalues.  `args` are
-    those of _iteration_phase_exact after `dense_solve`."""
-    def dense_solve(av, gamw, gam2):
-        d, T = eigen_weights(ef, gamw, gam2)      # d_i = 1/(gam2 + gamw lam_i)
-        return eigen_dual_solve(ef, av, d), T
-
-    return _iteration_phase_exact(dm, dense_solve, *args)
-
-
-def _iteration_phase_spectral(dm: DesignMatrix, fac: GramFactor, *args) -> dict:
-    """The exact iteration with the spectral LMMSE solve (JAX
-    engine/linear.py:255-365): S = gamw K + gam2 I factored and inverted
-    every iteration (ops/spectral.py shift_inverse, the fused blocked pass,
-    ~2N^3/3 FLOPs), S^{-1} A v = W^T (W A v), T = ||W||_F^2."""
-    def dense_solve(av, gamw, gam2):
-        winv = shift_inverse(fac, gamw, gam2, nb=default_nb(fac.n))
-        return winv.solve(av), winv.T
-
-    return _iteration_phase_exact(dm, dense_solve, *args)
-
-
 def choose_lmmse_solver(cfg: RunConfig, mt: int, n: int, shard: Shard | None = None) -> str:
     """Resolve cfg.lmmse_solver with the JAX engine's rule
     (engine/linear.py:485-521): "auto" picks the spectral path when the
@@ -424,8 +396,10 @@ def choose_lmmse_solver(cfg: RunConfig, mt: int, n: int, shard: Shard | None = N
     on every rank) upgrades it to eigen, whose dense work is two N^2
     matvecs an iteration against the spectral factor's 2N^3/3, once the
     eigh is a file load.  Over several ranks a cold auto keeps spectral and
-    rank 0 prints the JAX engine's hint."""
+    rank 0 prints the JAX engine's hint.  An unknown name raises."""
     s = cfg.lmmse_solver
+    if s not in ("auto", "cg", "eigen", "spectral"):
+        raise ValueError(f"unknown LMMSE solver {s!r}")
     if s != "auto":
         return s
     if n <= cfg.spectral_max_n and n >= 2048 and mt >= 4 * n:
@@ -762,8 +736,6 @@ def infere_linear(
     it_start = 1
 
     solver = choose_lmmse_solver(cfg, Mt, N, shard)
-    if solver not in ("cg", "eigen", "spectral"):
-        raise ValueError(f"unknown LMMSE solver {solver!r}")
     warn_em_stability(cfg, Mt, N)
 
     setup = {}
@@ -830,28 +802,23 @@ def infere_linear(
 
             x1_prev = x1_hat
             r1_in = r1  # the r1 this iteration denoises; dumped to _r1_it_<k>.bin
-            if solver == "cg":
+            if fac is None:
                 with span("probe"):
                     bern = probes.draw()
             with span("solve"):
-                if solver == "eigen":
-                    out = _iteration_phase_eigen(
-                        dm, fac, aty_adj, y_raw, r1, gam1, prior, x1_prev,
-                        it > 1, rho, gamw, ts,
-                    )
-                elif solver == "spectral":
-                    out = _iteration_phase_spectral(
-                        dm, fac, aty_adj, y_raw, r1, gam1, prior, x1_prev,
-                        it > 1, rho, gamw, ts,
-                    )
-                else:
+                if fac is None:
                     out = _iteration_phase(
                         dm, aty_adj, y_raw, r1, gam1, prior, x1_prev,
                         it > 1, rho, gamw, mu_warm, bern, ts,
                         cfg.CG_max_iter, cfg.CG_err_tol,
                         debug=cfg.verbosity == 1,
                     )
-            if solver != "cg":
+                else:
+                    out = _iteration_phase_exact(
+                        dm, fac, aty_adj, y_raw, r1, gam1, prior, x1_prev,
+                        it > 1, rho, gamw, ts,
+                    )
+            if fac is not None:
                 with span("probe"):
                     probes.skip()
 

@@ -74,9 +74,7 @@ from ..config import RunConfig
 from ..glm.probit import g1_bin_class, g1d_bin_class
 from ..io.bin_io import HostCopy, HostStager
 from ..ops.cg import cg_solve
-from ..ops.eigen import eigen_dual_solve, eigen_weights
 from ..ops.operator import DesignMatrix, atx, ax, ax_batch, f64
-from ..ops.spectral import _trace_closed_forms, default_nb, shift_inverse
 from ..prior.mixture import MixturePrior, g1, g1d, init_prior
 from ..sharding import all_reduce_, all_reduce_many, broadcast_, gather_m, is_writer, local_rows
 from ..utils.async_writer import AsyncWriter
@@ -129,15 +127,15 @@ def _probit_phase(
     x1_hat_prev,
     damp: bool,       # apply rho-damping (it > 1)
     rho, probit_var,
-    bern,             # Rademacher probe, +-1/sqrt(Mt) (CG only)
+    bern,             # Rademacher probe, +-1/sqrt(Mt) (CG only; else None)
     true_signal_scaled,   # sqrt(N) * beta
     cg_max_iter, cg_err_tol,
-    fac=None,         # GramFactor (spectral) or EigenFactor (eigen)
-    solver: str = "cg",
+    fac=None,         # GramFactor (spectral), EigenFactor (eigen) or None (CG)
     debug: bool = False,  # --verbosity 1 per-CG-iteration prints
 ) -> dict:
     """One probit GLM-VAMP iteration (JAX engine/probit.py:76-231).  M/N
-    vectors in the work dtype; scalars f64."""
+    vectors in the work dtype; scalars f64.  With a factor the LMMSE step is
+    exact, its N x N step `fac.solve`; without one, CG."""
     wd = dm.wd
     dev = dm.device
     c = lambda s: f64(s, dev).to(wd)  # noqa: E731 — scalar → work dtype
@@ -177,26 +175,20 @@ def _probit_phase(
     # ---------- LMMSE x (src/vamp_probit.cpp:291-346) ----------
     v = c(tau2) * atx(dm, p2_new) + c(gam2) * r2_new
     cg_iters = 0
-    if solver in ("eigen", "spectral"):
+    if fac is not None:
         # z1_pred (the denoising metrics, src/vamp_probit.cpp:269-287) shares
         # the A-pass with A v; z2_hat = A x2_hat is the push-through
-        # q = S^{-1} A v, S = gam2 I + tau2 K: the N x N step, as the linear
-        # engine's dense_solve takes it, then the third pass, A^T q
+        # q = S^{-1} A v, S = gam2 I + tau2 K: the factor's N x N step, as
+        # in the linear engine, then the third pass, A^T q
         Z = ax_batch(dm, torch.stack([x1_hat * inv_sqrt_n, v], dim=1))
         z1_pred = Z[:, 0]
         av = Z[:, 1]
         with span("dense"):
-            if solver == "eigen":
-                d, T = eigen_weights(fac, tau2, gam2)
-                q = eigen_dual_solve(fac, av, d)
-            else:
-                winv = shift_inverse(fac, tau2, gam2, nb=default_nb(fac.n))
-                q, T = winv.solve(av), winv.T
-            tr_qinv, _ = _trace_closed_forms(T, fac.n, dm.mt, tau2, gam2)
+            q, tr_qinv, _ = fac.solve(av, tau2, gam2, dm.mt)
         x2_hat = (v - c(tau2) * atx(dm, q)) / c(gam2)
         z2_hat = q
         alpha2 = gam2 * tr_qinv / dm.mt
-    elif solver == "cg":
+    else:
         z1_pred = ax(dm, x1_hat * inv_sqrt_n)
         V = torch.stack([v, bern.to(wd)], dim=1)
         res = cg_solve(
@@ -211,8 +203,6 @@ def _probit_phase(
             torch.float64)
         z2_hat = ax(dm, x2_hat)
         cg_iters = res.iters
-    else:
-        raise ValueError(f"unknown LMMSE solver {solver!r}")
 
     # metrics, denoising half (src/vamp_probit.cpp:269-287)
     with span("confusion"):
@@ -320,8 +310,6 @@ def infere_bin_class(
                                shard)
 
     solver = choose_lmmse_solver(cfg, Mt, N, shard)
-    if solver not in ("cg", "eigen", "spectral"):
-        raise ValueError(f"unknown LMMSE solver {solver!r}")
     warn_em_stability(cfg, Mt, N)
 
     # exact-state resume (vampomi_tpu/engine/probit.py:353-378)
@@ -354,8 +342,6 @@ def infere_bin_class(
     iter_collectives = [] if shard is not None else None
     it_done = 0
     L = prior.L
-    exact = solver in ("spectral", "eigen")
-    zeros_m = torch.zeros(M_pad, dtype=wd, device=dev)
 
     try:
         for it in range(it_start, cfg.iterations + 1):
@@ -365,7 +351,8 @@ def infere_bin_class(
 
             x1_prev = x1_hat
             r1_in = r1  # the r1 this iteration denoises; dumped to _r1_it_<k>.bin
-            if not exact:
+            bern = None
+            if fac is None:
                 with span("probe"):
                     bern = probes.draw()
             with span("solve"):
@@ -373,11 +360,11 @@ def infere_bin_class(
                     dm, y_t, m_cov, r1, r2, p1, p2,
                     gam1, tau1, alpha1, prior, x1_prev,
                     it > 1, rho, probit_var,
-                    zeros_m if exact else bern, ts_scaled,
+                    bern, ts_scaled,
                     cfg.CG_max_iter, cfg.CG_err_tol,
-                    fac=fac, solver=solver, debug=cfg.verbosity == 1,
+                    fac=fac, debug=cfg.verbosity == 1,
                 )
-            if exact:
+            if fac is not None:
                 with span("probe"):
                     probes.skip()
 

@@ -12,6 +12,9 @@ makes every per-iteration dense quantity O(N^2) or closed-form:
     S^{-1} b   = U ((gam2 + tau*lam)^{-1} ∘ (U^T b))      [2 matvecs]
     tr(S^{-1}) = sum_i 1/(gam2 + tau*lam_i)               [exact, f64]
 
+`EigenFactor.solve` gives an iteration both, with the two trace closed
+forms, under the contract of the spectral solver's `GramFactor.solve`.
+
 The build is `torch.linalg.eigh` of K in f64, as the JAX package's own
 small-N host leaf does (eigen.py:565-572).  The JAX package's sign-function
 divide-and-conquer eigensolver (eigen.py:121-797) exists because XLA's TPU eigh
@@ -41,7 +44,7 @@ import torch
 
 from ..sharding import Shard, broadcast_, broadcast_from0
 from ..utils.telemetry import span
-from .operator import DesignMatrix, atx, ax, f64
+from .operator import f64
 from .spectral import GramFactor, _trace_closed_forms
 
 
@@ -60,6 +63,17 @@ class EigenFactor(NamedTuple):
     @property
     def n(self) -> int:
         return self.U.shape[0]
+
+    def solve(self, av: torch.Tensor, tau, gam2, mt):
+        """The N x N step of an exact iteration, S = gam2 I + tau K:
+        (q = S^{-1} av, tr Q^{-1}, tr A^T A Q^{-1}), the traces f64 over the
+        mt markers (`GramFactor.solve`'s contract).  q = U (d ∘ (U^T av))
+        in U's dtype, d = 1/(gam2 + tau lam) from eigen_weights: the one
+        place that applies S^{-1}."""
+        d, T = eigen_weights(self, tau, gam2)
+        U = self.U
+        q = U @ (d.to(U.dtype) * (U.T @ av.to(U.dtype)))
+        return (q, *_trace_closed_forms(T, self.n, mt, tau, gam2))
 
 
 def build_eigen(fac: GramFactor, shard: Shard | None = None) -> tuple[EigenFactor, dict]:
@@ -240,39 +254,3 @@ def eigen_weights(ef: EigenFactor, tau, gam2):
     gam264 = f64(gam2, ef.lam.device)
     d = 1.0 / (gam264 + tau64 * ef.lam)
     return d, d.sum()
-
-
-def eigen_solve(
-    dm: DesignMatrix,
-    ef: EigenFactor,
-    v: torch.Tensor,
-    tau,
-    gam2,
-    av: torch.Tensor | None = None,
-):
-    """Exact mu = (tau A^T A + gam2 I)^{-1} v via the eigenbasis (Woodbury
-    and push-through identities).  Returns (mu, q) with q = S^{-1} A v = A mu."""
-    wd = dm.wd
-    tau_c = f64(tau, dm.device).to(wd)
-    gam2_c = f64(gam2, dm.device).to(wd)
-    vc = v.to(wd)
-    if av is None:
-        av = ax(dm, vc)
-    d, _ = eigen_weights(ef, tau, gam2)
-    q = eigen_dual_solve(ef, av, d)
-    mu = (vc - tau_c * atx(dm, q)) / gam2_c
-    return mu, q
-
-
-def eigen_dual_solve(ef: EigenFactor, av: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """q = S^{-1} av = U (d ∘ (U^T av)), with d = 1/(gam2 + tau lam) from
-    eigen_weights, in U's dtype: the one place that applies S^{-1} (both
-    engines' eigen iterations come here)."""
-    wd = ef.U.dtype
-    return ef.U @ (d.to(wd) * (ef.U.T @ av.to(wd)))
-
-
-def eigen_traces(ef: EigenFactor, mt, tau, gam2):
-    """Exact (tr Q^{-1}, tr(A^T A Q^{-1})) over the Mt markers, f64."""
-    _, T = eigen_weights(ef, tau, gam2)
-    return _trace_closed_forms(T, ef.n, mt, tau, gam2)

@@ -1,6 +1,7 @@
 """The Gram-space (Woodbury) LMMSE solver: the Gram matrix K = A A^T, the
-per-iteration factor of the shifted dual S = gam2 I + tau K, the exact solve
-and the trace closed forms (port of vampomi_tpu/ops/spectral.py).
+per-iteration factor of the shifted dual S = gam2 I + tau K, and the exact
+N x N step of an iteration, `GramFactor.solve` (port of
+vampomi_tpu/ops/spectral.py).
 
 K is built once per dataset, blocked over markers:
 
@@ -24,7 +25,8 @@ package, which rounds the w^2-weighted side to bf16 (spectral.py:111-133):
 
 Per iteration the spectral solver factors S = L L^T and forms W = L^{-1}
 (`shift_inverse`), so that S^{-1} b = W^T (W b) and T = tr S^{-1} = ||W||_F^2
-make the LMMSE solve and both VAMP traces exact:
+make the LMMSE solve and both VAMP traces exact (`GramFactor.solve` gives
+S^{-1} A v and the two traces; the engine's one atx pass makes Q^{-1} v):
 
     Q^{-1} v        = (v - tau A^T S^{-1} A v) / gam2     [Woodbury]
     A Q^{-1} v      = S^{-1} A v                          [push-through]
@@ -42,12 +44,10 @@ lower block triangle and W built row group by row group — about 2N^3/3 FLOPs
 off.  The GEMMs run in eager PyTorch, so every block is a view of S (updated
 in place; it ends as L below its diagonal blocks) or of one (N, N) W, and
 each of JAX's inner block sums that runs over a contiguous range is one GEMM:
-about nb^2 GEMMs a call.  `shift_cholesky` is the blocked right-looking
-Cholesky alone (`_blocked_cholesky`, 8 blocks from N = 2048, as JAX's).  A
-factor that fails (S not positive definite in the work dtype) raises, naming
-the global leading minor: the leaves' infos stay on the device and are read
-with one host sync a call; nothing returns NaNs or switches to another
-solver.
+about nb^2 GEMMs a call.  A factor that fails (S not positive definite in the
+work dtype) raises, naming the global leading minor: the leaves' infos stay
+on the device and are read with one host sync a call; nothing returns NaNs
+or switches to another solver.
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ import torch
 
 from ..sharding import all_reduce_many
 from .gram_tc import gram_blocks, gram_tc
-from .operator import NARROW, DesignMatrix, atx, ax, f64
+from .operator import NARROW, DesignMatrix, f64
 
 
 class GramFactor(NamedTuple):
@@ -71,6 +71,14 @@ class GramFactor(NamedTuple):
     @property
     def n(self) -> int:
         return self.K.shape[0]
+
+    def solve(self, av: torch.Tensor, tau, gam2, mt):
+        """The N x N step of an exact iteration, S = gam2 I + tau K:
+        (q = S^{-1} av, tr Q^{-1}, tr A^T A Q^{-1}), the traces f64 over the
+        mt markers, through the inverse factor of `shift_inverse` at
+        default_nb(N) blocks.  Raises when the factor fails."""
+        winv = shift_inverse(self, tau, gam2)
+        return (winv.solve(av), *_trace_closed_forms(winv.T, self.n, mt, tau, gam2))
 
 
 def gram(dm: DesignMatrix, block: int = 16384) -> torch.Tensor:
@@ -250,94 +258,6 @@ def shift_inverse(fac: GramFactor, tau, gam2, nb: int | None = None) -> ShiftInv
     W = _shift_inverse_body(_shifted(fac, tau, gam2), nb or default_nb(fac.n), infos)
     _check_factor(infos, fac, tau, gam2)
     return ShiftInverse(W=W, T=_frobenius2(W))
-
-
-def _blocked_cholesky(S: torch.Tensor, nb: int, infos: list) -> torch.Tensor:
-    """L of S = L L^T by the JAX package's right-looking blocked Cholesky
-    (vampomi_tpu/ops/spectral.py:372-396), in place in S: each diagonal block
-    by cholesky_ex (its (offset, info) to `infos`), its panel by a
-    triangular solve, the trailing update on the lower block triangle."""
-    n = S.shape[0]
-    spans = _spans(n, nb)
-    for i, (lo, hi) in enumerate(spans):
-        Ljj, info = torch.linalg.cholesky_ex(S[lo:hi, lo:hi])
-        infos.append((lo, info))
-        S[lo:hi, lo:hi].copy_(Ljj)
-        if hi < n:
-            P = torch.linalg.solve_triangular(Ljj.T, S[hi:, lo:hi], upper=True, left=False)
-            _trailing_update(S, P, spans[i + 1:])
-            S[hi:, lo:hi].copy_(P)
-    return S.tril_()
-
-
-def shift_cholesky(fac: GramFactor, tau, gam2) -> torch.Tensor:
-    """L with L L^T = S = gam2 I + tau K, in the factor's dtype: one
-    cholesky_ex below N = 2048, 8 blocks of _blocked_cholesky from there, as
-    the JAX package.  Raises when the factor fails (the leading minor
-    cuSOLVER or LAPACK reports is not positive in the work dtype)."""
-    infos: list = []
-    L = _blocked_cholesky(_shifted(fac, tau, gam2), 8 if fac.n >= 2048 else 1, infos)
-    _check_factor(infos, fac, tau, gam2)
-    return L
-
-
-def spectral_solve(
-    dm: DesignMatrix,
-    fac: GramFactor,
-    v: torch.Tensor,
-    tau,
-    gam2,
-    av: torch.Tensor | None = None,
-    L: torch.Tensor | None = None,
-    winv: ShiftInverse | None = None,
-):
-    """Exact mu = (tau A^T A + gam2 I)^{-1} v via Woodbury.  Returns (mu, q)
-    with q = S^{-1} A v = A mu (push-through, no extra pass over X).  Pass
-    `av = A v` if it is at hand, and either the inverse factor `winv` or a
-    shift Cholesky `L` (a Cholesky solve); with neither, L is factored here."""
-    wd = dm.wd
-    tau_c = f64(tau, dm.device).to(wd)
-    gam2_c = f64(gam2, dm.device).to(wd)
-    vc = v.to(wd)
-    if av is None:
-        av = ax(dm, vc)
-    if winv is not None:
-        q = winv.solve(av.to(wd))
-    else:
-        if L is None:
-            L = shift_cholesky(fac, tau, gam2)
-        q = torch.cholesky_solve(av.to(wd)[:, None], L)[:, 0]
-    mu = (vc - tau_c * atx(dm, q)) / gam2_c
-    return mu, q
-
-
-def spectral_traces(fac: GramFactor, mt, tau, gam2, L: torch.Tensor | None = None,
-                    winv: ShiftInverse | None = None):
-    """Exact (tr Q^{-1}, tr(A^T A Q^{-1})) over the Mt markers, f64, from
-    T = tr S^{-1}: the inverse factor's T when `winv` is given, else
-    ||L^{-1}||_F^2 of the shift Cholesky `L` (factored here if not given) by
-    the JAX package's blocked forward substitution
-    (vampomi_tpu/ops/spectral.py:452-506): over 8 column groups j, row block
-    i of L^{-1}[:, j] solves L_ii X_i = [i == j] I - sum_{k=j}^{i-1} L_ik X_k
-    (the sum one GEMM), each group's squares summed in f64."""
-    if winv is not None:
-        return _trace_closed_forms(winv.T, fac.n, mt, tau, gam2)
-    if L is None:
-        L = shift_cholesky(fac, tau, gam2)
-    n = fac.n
-    T = torch.zeros((), dtype=torch.float64, device=L.device)
-    spans = _spans(n, 8)
-    for j, (jlo, jhi) in enumerate(spans):
-        X = torch.empty((n - jlo, jhi - jlo), dtype=L.dtype, device=L.device)
-        for lo, hi in spans[j:]:
-            if lo == jlo:
-                acc = torch.eye(hi - lo, dtype=L.dtype, device=L.device)
-            else:
-                acc = -(L[lo:hi, jlo:lo] @ X[:lo - jlo])
-            X[lo - jlo:hi - jlo] = torch.linalg.solve_triangular(L[lo:hi, lo:hi], acc,
-                                                                 upper=False)
-        T = T + _frobenius2(X)
-    return _trace_closed_forms(T, n, mt, tau, gam2)
 
 
 def _trace_closed_forms(T, n, mt, tau, gam2):
