@@ -74,7 +74,7 @@ from ..config import RunConfig
 from ..glm.probit import g1_bin_class, g1d_bin_class
 from ..io.bin_io import HostCopy, HostStager
 from ..ops.cg import cg_solve
-from ..ops.operator import DesignMatrix, atx, ax, ax_batch, f64
+from ..ops.operator import Consts, DesignMatrix, atx, ax, ax_batch, f64
 from ..prior.mixture import MixturePrior, g1, g1d, init_prior
 from ..sharding import all_reduce_, all_reduce_many, broadcast_, gather_m, is_writer, local_rows
 from ..utils.async_writer import AsyncWriter
@@ -132,13 +132,15 @@ def _probit_phase(
     cg_max_iter, cg_err_tol,
     fac=None,         # GramFactor (spectral), EigenFactor (eigen) or None (CG)
     debug: bool = False,  # --verbosity 1 per-CG-iteration prints
+    consts: Consts | None = None,  # the fit's numbers on the device
 ) -> dict:
     """One probit GLM-VAMP iteration (JAX engine/probit.py:76-231).  M/N
     vectors in the work dtype; scalars f64.  With a factor the LMMSE step is
     exact, its N x N step `fac.solve`; without one, CG."""
     wd = dm.wd
     dev = dm.device
-    c = lambda s: f64(s, dev).to(wd)  # noqa: E731 — scalar → work dtype
+    consts = consts or Consts(dev)
+    c = lambda s: consts(s, wd)  # noqa: E731 — scalar → work dtype
     gam1 = f64(gam1, dev)
     tau1 = f64(tau1, dev)
     alpha1_prev = f64(alpha1_prev, dev)
@@ -213,7 +215,7 @@ def _probit_phase(
     # the error measures over markers, summed over the ranks in one
     # all_reduce: nothing inside the iteration reads them
     s1, s2, nm = all_reduce_many(
-        [signal_sums(x1_hat, ts, dm.n), signal_sums(x2_hat, ts, dm.n),
+        [signal_sums(x1_hat, ts, consts(dm.n)), signal_sums(x2_hat, ts, consts(dm.n)),
          _nmse_sums(x1_hat, x1_hat_prev)], dm.shard)
     x1_corr, x2_corr = signal_from_sums(s1)[0], signal_from_sums(s2)[0]
 
@@ -333,6 +335,7 @@ def infere_bin_class(
     solver, fac = build_lmmse_factor(dm, cfg, solver, setup)
     probes = _ProbeStream(gen, dm, _draw_probe)
     tracer = trace_of(dm, cfg, write_outputs, probes)
+    consts = Consts(dev)  # the numbers the iterations read on the device
 
     writer = AsyncWriter()
     stager = HostStager(dev)
@@ -362,7 +365,7 @@ def infere_bin_class(
                     it > 1, rho, probit_var,
                     bern, ts_scaled,
                     cfg.CG_max_iter, cfg.CG_err_tol,
-                    fac=fac, debug=cfg.verbosity == 1,
+                    fac=fac, debug=cfg.verbosity == 1, consts=consts,
                 )
             if fac is not None:
                 with span("probe"):
@@ -377,6 +380,7 @@ def infere_bin_class(
                         dm, r1_in, gam1, prior, cfg.EM_max_iter, cfg.EM_err_thr,
                         bool(cfg.learn_vars), cfg.merge_vars_thr,
                         cfg.em_signal_budget(N), debug=cfg.verbosity == 1,
+                        consts=consts,
                     )
 
             x1_hat = out["x1_hat"]

@@ -44,6 +44,8 @@ or plain product): it adds one to `X_PASSES`, which the engines' Tracer
 reads around each iteration, and runs in an `xpass` span
 (utils/telemetry.py).  The Gibbs sweep reads X a block of rows at a time
 through `ax_block` / `atx_block`, which are neither counted nor spanned.
+A replayed CUDA graph makes the passes and the kernel launches its capture
+counted, and counts them with `count_passes` (engine/graph.py).
 """
 
 from __future__ import annotations
@@ -70,10 +72,26 @@ QUANTIZED = (torch.int8, PACKED4_DTYPE)
 NARROW = QUANTIZED + (torch.bfloat16,)
 
 X_PASSES = 0  # calls of ax, atx, ax_batch and atx_batch in this process: passes over X
+# the hand kernels of the passes, each counting its launches in `.launches`
+PASS_KERNELS = (atx_int8, atx_batch_int8, atx_bf16, atx_batch_bf16, ax_batch_bf16,
+                ax_batch_int8, ax_batch_packed4, atx_packed4, atx_batch_packed4)
 
 
 def x_passes() -> int:
     return X_PASSES
+
+
+def pass_counts() -> list[int]:
+    """X_PASSES, then the launches of each of PASS_KERNELS."""
+    return [X_PASSES] + [k.launches for k in PASS_KERNELS]
+
+
+def count_passes(delta: list[int]) -> None:
+    """Add `delta`, a difference of two pass_counts(), to the counts."""
+    global X_PASSES
+    X_PASSES += delta[0]
+    for k, d in zip(PASS_KERNELS, delta[1:]):
+        k.launches += d
 
 
 class DesignMatrix(NamedTuple):
@@ -121,6 +139,29 @@ def f64(x, device) -> torch.Tensor:
     """x (Python number or tensor) as an f64 tensor on `device` — O(1)
     quantities are f64 everywhere (a bare torch.as_tensor(float) is f32)."""
     return torch.as_tensor(x, dtype=torch.float64, device=device)
+
+
+class Consts:
+    """Python numbers as tensors on `device`, each made once: `k(x)` is
+    `f64(x, device)` and `k(x, dtype)` that tensor `.to(dtype)`, made at the
+    first call for x's bits and dtype and kept; for a tensor x, `k(x,
+    dtype)` is `f64(x, device).to(dtype)`.  A Python number made a card's
+    tensor is a copy from the host, which synchronises the stream and which
+    a CUDA graph cannot capture: an engine keeps one `Consts` a fit, so
+    that an iteration copies no number its first one copied."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._made = {}
+
+    def __call__(self, x, dtype: torch.dtype = torch.float64) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return f64(x, self.device).to(dtype)
+        key = (float(x).hex(), dtype)  # by its bits: 0.0 and -0.0 are equal keys
+        t = self._made.get(key)
+        if t is None:
+            t = self._made[key] = f64(x, self.device).to(dtype)
+        return t
 
 
 def _xt_w(dm: DesignMatrix, w: torch.Tensor) -> torch.Tensor:

@@ -24,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.operator import f64
+from ..ops.operator import Consts, f64
 from ..sharding import Shard, all_reduce_many
 
 _SIGMA_TINY = 1e-10  # reference: src/vamp.cpp:446 shortcut when 1/gam1 ~ 0
@@ -118,6 +118,7 @@ def em_update(
     learn_vars,
     debug: bool = False,
     shard: Shard | None = None,
+    consts: Consts | None = None,
 ) -> MixturePrior:
     """One call of the reference's `updatePrior` EM loop
     (src/vamp.cpp:531-643, minus the merge — see `merge_components_device`).
@@ -127,17 +128,19 @@ def em_update(
     flag, so the call does not synchronise.  The (M, L) responsibilities are
     in r1's dtype; the O(L) hyperparameter arithmetic stays f64.  With a
     `shard` (r1 and mmask the rank's slab, `mt` global), the three sums
-    over markers of an EM step meet in one all_reduce.
+    over markers of an EM step meet in one all_reduce.  `consts`: the
+    fit's numbers on the device (ops/operator.py), else made here.
     """
     wd = r1.dtype
     dev = r1.device
+    consts = consts or Consts(dev)
     gam1 = f64(gam1, dev)
     noise_var = (1.0 / gam1).to(wd)
     gam1_c = gam1.to(wd)
     slab = prior.active & (torch.arange(prior.L, device=dev) >= 1)
     mmask_c = mmask.to(wd)
     r2_half = (r1 * r1) * 0.5  # (M,)
-    two_pi = torch.tensor(2.0 * np.pi, dtype=wd, device=dev)
+    two_pi = consts(2.0 * np.pi, wd)
     zero = torch.zeros((), dtype=wd, device=dev)
     neg_inf = torch.full_like(prior.vars, -math.inf)
 
@@ -237,20 +240,22 @@ def merge_components(
     return probs, vars_, active
 
 
-def merge_components_device(prior: MixturePrior, merge_vars_thr) -> MixturePrior:
+def merge_components_device(prior: MixturePrior, merge_vars_thr,
+                            consts: Consts | None = None) -> MixturePrior:
     """Merge with `merge_components`' semantics, computed on the prior's
     device without a host round trip (unrolled over the fixed L, ~L^2/2
-    scalar selects)."""
+    scalar selects).  `consts`: the fit's numbers on the device, else
+    made here."""
     probs = prior.probs.clone()
     vars_ = prior.vars
     active = prior.active.clone()
-    thr = f64(merge_vars_thr, probs.device)
+    consts = consts or Consts(probs.device)
+    thr = consts(merge_vars_thr)
+    tiny = consts(1e-7)
     L = probs.shape[0]
     for j in range(L):
         for k in range(j + 1, L):
-            denom = torch.where(
-                vars_[j] != 0.0, torch.minimum(vars_[j], vars_[k]),
-                torch.tensor(1e-7, dtype=torch.float64, device=probs.device))
+            denom = torch.where(vars_[j] != 0.0, torch.minimum(vars_[j], vars_[k]), tiny)
             # denom == 0 means an infinite ratio — never a merge; divide by a
             # dummy 1.0 to keep the masked-out lane finite
             ratio = (vars_[j] - vars_[k]).abs() / torch.where(denom != 0.0, denom, 1.0)
