@@ -65,6 +65,7 @@ not depend on the rank count.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import sys
@@ -129,13 +130,17 @@ class LinearResult(NamedTuple):
     iter_collectives: list | None = None
     # wall seconds of the once-per-run setup, and the eigen residual:
     # {"cov", "aty", "gram", "eigh" (of it "eigen_solve", the eigh alone),
-    # "eigen_resid"} as far as the run needed them
+    # "eigen_resid"} as far as the run needed them; with the outputs on,
+    # "dump.flush", the wait for the IO thread's backlog after the loop
     setup: dict | None = None
     # the LMMSE solver that ran: auto resolved, after the eigen fallbacks
     solver: str | None = None
     # each iteration's {span: host seconds} (utils/telemetry.py),
     # "passes", the passes over X counted at the operator, "probe_draws"
-    # and "graph_replays" (1 where the iteration was a graph's replay)
+    # and "graph_replays" (1 where the iteration was a graph's replay);
+    # with the outputs on (`dump_iteration`), also "dump.stage", "csv",
+    # "dump.wait" where the submit waited, the IO thread's "dump.copy" and
+    # "dump.write", and the counters "dump_bytes" and "dump_waited"
     iter_phases: list | None = None
 
 
@@ -608,15 +613,20 @@ def build_lmmse_factor(dm: DesignMatrix, cfg: RunConfig, solver: str, setup: dic
 
 
 def trace_of(dm: DesignMatrix, cfg: RunConfig, write_outputs: bool,
-             probes: _ProbeStream, graph: IterationGraph | None = None) -> Tracer:
+             probes: _ProbeStream, writer: AsyncWriter,
+             graph: IterationGraph | None = None) -> Tracer:
     """The run's Tracer: <out>_trace.jsonl with the outputs on and
     cfg.trace, each pass over X reading the stored design's bytes, the
-    probe draws an iteration made counted as "probe_draws", and as
-    "graph_replays" 1 for an iteration `graph` replayed, else 0."""
+    probe draws an iteration made counted as "probe_draws", as
+    "graph_replays" 1 for an iteration `graph` replayed, else 0, and with
+    the outputs on, as "dump_waited" the submits to the IO thread that
+    waited for its backlog."""
     path = f"{cfg.out_dir}/{cfg.out_name}_trace.jsonl" if write_outputs and cfg.trace else None
-    return Tracer(path, x_passes, dm.X.numel() * dm.X.element_size(),
-                  counters={"probe_draws": lambda: probes.draws,
-                            "graph_replays": lambda: graph.replays if graph else 0})
+    counters = {"probe_draws": lambda: probes.draws,
+                "graph_replays": lambda: graph.replays if graph else 0}
+    if write_outputs:
+        counters["dump_waited"] = lambda: writer.waits
+    return Tracer(path, x_passes, dm.X.numel() * dm.X.element_size(), counters=counters)
 
 
 def _graphable(dm: DesignMatrix, fac, cfg: RunConfig) -> bool:
@@ -668,15 +678,30 @@ def open_csvs(cfg: RunConfig) -> tuple[PositionalCSV, PositionalCSV, PositionalC
             csv(base + "_prior.csv", prior_header))
 
 
-def dump_iteration(cfg: RunConfig, mt: int, sqrt_n: float, k: int, copy,
-                   start: int = 0) -> None:
+def dump_iteration(cfg: RunConfig, mt: int, sqrt_n: float, k: int, copy, start: int,
+                   into: dict) -> None:
     """The per-iteration artifacts (src/vamp.cpp:234-252): x1_hat/sqrt(N)
     and the r1 denoised in iteration k, from a HostStager copy of the
-    markers from `start` on (a rank's slab); run on the IO thread."""
-    x1_host, r1_host = copy.wait()
-    write_marker_file(iteration_file(cfg.out_dir, cfg.out_name, k), x1_host, mt, sqrt_n, start)
-    write_marker_file(iteration_file(cfg.out_dir, cfg.out_name, k, kind="r1_"),
-                      r1_host, mt, sqrt_n, start)
+    markers from `start` on (a rank's slab); run on the IO thread.  Its
+    spans, "dump.copy" (the wait for the copy to land) and "dump.write"
+    (the widening, the division and both writes), and "dump_bytes", the
+    bytes written, go to `into`, the record of iteration k that the engine
+    folds into its phases (Tracer.fold)."""
+    with span("dump.copy", into):
+        x1_host, r1_host = copy.wait()
+    with span("dump.write", into):
+        written = write_marker_file(iteration_file(cfg.out_dir, cfg.out_name, k),
+                                    x1_host, mt, sqrt_n, start)
+        written += write_marker_file(iteration_file(cfg.out_dir, cfg.out_name, k, kind="r1_"),
+                                     r1_host, mt, sqrt_n, start)
+    into["dump_bytes"] = written
+
+
+def flush_timed(writer: AsyncWriter, setup: dict, write_outputs: bool) -> None:
+    """Close the run's writer; with the outputs on, the wait for its
+    backlog is the span "dump.flush" of the run's `setup`."""
+    with span("dump.flush", setup) if write_outputs else contextlib.nullcontext():
+        writer.close()
 
 
 def checkpoint_iteration(cfg: RunConfig, model: str, dm: DesignMatrix, k: int, copy,
@@ -816,14 +841,15 @@ def infere_linear(
     probes = _ProbeStream(gen, dm, _draw_probe)
     graph = IterationGraph(dev) if _graphable(dm, fac, cfg) else None
     first_steady = _first_steady(cfg)
-    tracer = trace_of(dm, cfg, write_outputs, probes, graph)
     consts = Consts(dev)  # the numbers the iterations read on the device
 
     # device→host artifact IO overlaps the next iteration's compute: the
     # copies run on a side stream (HostStager), the f64 scaling and the
-    # writes on the IO thread
+    # writes on the IO thread, whose spans go to io_phases[iteration]
     writer = AsyncWriter()
     stager = HostStager(dev)
+    io_phases = {}
+    tracer = trace_of(dm, cfg, write_outputs, probes, writer, graph)
     # y_adj is constant across iterations: fetched once, not per checkpoint
     y_adj_host = (y_adj.cpu().numpy().astype(np.float64)
                   if cfg.checkpoint_file else None)
@@ -909,17 +935,20 @@ def infere_linear(
                 # per-iteration artifacts (src/vamp.cpp:234-252): x1_hat/sqrt(N)
                 # and the r1 denoised this iteration, written on the IO thread
                 if write_outputs:
-                    writer.submit(dump_iteration, cfg, Mt, sqrt_n, it,
-                                  stager.copy((own(x1_hat), own(r1_in))), lo)
+                    with span("dump.stage"):
+                        writer.submit(dump_iteration, cfg, Mt, sqrt_n, it,
+                                      stager.copy((own(x1_hat), own(r1_in))), lo,
+                                      io_phases.setdefault(it, {}))
 
                 metrics_history.append(metrics)
                 params_row = [alpha1_h, gam1_denoise, alpha2_h, gam2_h, gamw_h]
                 if write_outputs:
-                    out_params.write_row(it, params_row)
-                    out_metrics.write_row(it, metrics.tolist())
-                    pr = probs_h[act]
-                    vr = vars_h[act] / N
-                    out_prior.write_row(it, [float(len(pr))] + pr.tolist() + vr.tolist())
+                    with span("csv"):
+                        out_params.write_row(it, params_row)
+                        out_metrics.write_row(it, metrics.tolist())
+                        pr = probs_h[act]
+                        vr = vars_h[act] / N
+                        out_prior.write_row(it, [float(len(pr))] + pr.tolist() + vr.tolist())
 
                 _log(f"alpha1 = {alpha1_h}")
                 _log(f"gam1 = {gam1_denoise}")
@@ -955,7 +984,8 @@ def infere_linear(
                 break
     finally:
         tracer.close()
-        writer.close()  # artifacts durably on disk even on error paths
+        flush_timed(writer, setup, write_outputs)  # artifacts durably on disk even on error paths
+    tracer.fold(io_phases)
 
     act = prior.active.cpu().numpy()
     return LinearResult(

@@ -10,12 +10,16 @@ while the main thread dispatches the next iteration (jax arrays are immutable
 and fetches are thread-safe), so artifact IO overlaps compute completely.
 
 One worker preserves write order; exceptions surface on the next submit or
-at flush().
+at flush().  A submit that finds the backlog full waits for its oldest
+write: the wait is timed as the span `dump.wait` of the iteration in
+progress, and `waits` counts the submits that waited.
 """
 
 from __future__ import annotations
 
 from concurrent.futures import Future, ThreadPoolExecutor
+
+from .telemetry import span
 
 
 class AsyncWriter:
@@ -23,6 +27,7 @@ class AsyncWriter:
         self._ex = ThreadPoolExecutor(max_workers=1, thread_name_prefix="artifact-io")
         self._pending: list[Future] = []
         self._max_pending = max_pending
+        self.waits = 0  # submits that found the backlog full
 
     def submit(self, fn, *args, **kwargs) -> None:
         # single snapshot: a future completing between two done() sweeps must
@@ -34,8 +39,11 @@ class AsyncWriter:
             f.result()  # surface failures from finished work
         # backpressure: the queue holds references to per-iteration device
         # buffers — an unbounded backlog would pin HBM until close()
-        while len(self._pending) >= self._max_pending:
-            self._pending.pop(0).result()
+        if len(self._pending) >= self._max_pending:
+            self.waits += 1
+            with span("dump.wait"):
+                while len(self._pending) >= self._max_pending:
+                    self._pending.pop(0).result()
         self._pending.append(self._ex.submit(fn, *args, **kwargs))
 
     def flush(self) -> None:

@@ -20,6 +20,11 @@ counted during it (the probe draws).  The engine stops the clock after
 the iteration's one batched host fetch of its scalars, which waits for the
 device, so `seconds` is wall time of finished work.  Records are printed
 humanely and optionally appended to `<out>_trace.jsonl`.
+
+A span on another thread (the IO thread writing an iteration's artifacts)
+is given the record of its own iteration as `into`, never the iteration in
+progress on the main thread, and the engine folds those records into the
+iterations' phases once that thread is done (`Tracer.fold`).
 """
 
 from __future__ import annotations
@@ -131,6 +136,18 @@ class Tracer:
             with open(self.path, "a") as f:
                 f.write(json.dumps(asdict(rec)) + "\n")
         return rec
+
+    def fold(self, late: dict) -> None:
+        """Add to each iteration's phases what another thread recorded for
+        it, `late` {iteration: {name: value}}, once that thread is done;
+        the trace file is written again with them."""
+        if not late:
+            return
+        for rec in self.records:
+            rec.phases.update(late.get(rec.iteration, {}))
+        if self.path:
+            with open(self.path, "w") as f:
+                f.writelines(json.dumps(asdict(rec)) + "\n" for rec in self.records)
 
     def close(self):
         """End an iteration left open by a raise, recording nothing."""
